@@ -9,18 +9,28 @@ line per phase, then one JSON line per kernel summary, then the result:
 2. ``build``   builds every CUDA kernel from `diffusiondrive_torch/csrc/`
                with nvcc for sm_90a (one nvcc per source, in parallel) into
                `diffusiondrive_torch/_build/`; prints seconds and ptxas stats.
-3. ``kernel``  each kernel at the planner's shapes (B=16), in bf16 and f32,
-               against its plain PyTorch version (max abs error and the
-               tolerance), timed with CUDA events beside the plain version,
-               a cuDNN yardstick (`library_ms`, never used by the port) and
-               the card's bound for the same work (`bound_ms`).
+3. ``kernel``  each kernel at its main-path shapes (B=16; the conv kernels in
+               bf16 and f32) against its plain PyTorch version (max abs error
+               and the tolerance; the lidar splat must be exact), timed with
+               CUDA events beside the plain version, a library yardstick
+               (`library_ms`, never used by the port) and the card's bound
+               for the same work (`bound_ms`).
 4. ``main_path`` the full-width planner forward (default TransfuserConfig,
                seeded random weights): (a) float32 at B=1 on the card against
                the same model on the CPU; (b) bf16 at B=1 and B=16, finite
                outputs and frames/s. The kernel launch counters are set to 0
                before this phase and must read 2 stem and 12 conv3x3 launches
                per forward after it.
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+5. ``agent_path`` the raw-sensor agent (`DiffusionDriveAgent(
+               preprocess_on_device=True)`, full width): (a) float32 at B=1 on
+               the card against the same agent on the CPU (stitched camera,
+               BEV and every output); (b) bf16 `compute_trajectory` at B=1 and
+               `forward` at B=16: finite outputs, frames/s with the inputs
+               already on the card and with the host-to-device copy, the copy's
+               ms on its own line, peak memory. The counters are set to 0
+               before this phase and must read 1 splat, 2 stem and 12 conv3x3
+               launches per agent forward after it.
+6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -101,9 +111,13 @@ def phase_build() -> None:
 
     t0 = time.time()
     logs = _build.build_all()
+    missing = [n for n in _build.kernel_names() if not _build._target(n).exists()]
+    if missing:
+        raise RuntimeError(f"kernel libraries not built: {missing}")
     stats = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "registers" in ln or "spill" in ln]
-    log("build", seconds=round(time.time() - t0, 3), built=sorted(logs), ptxas=stats[:24])
+    log("build", seconds=round(time.time() - t0, 3), built=sorted(logs),
+        kernels=_build.kernel_names(), ptxas=stats[:24])
 
 
 def phase_kernels(dev) -> dict:
@@ -170,6 +184,59 @@ def phase_kernels(dev) -> dict:
                            library_ms=time_ms(lib), bound_ms=bms, bound_by=by)
                 log(f"kernel conv3x3 {label} {variant}", **row)
                 summary[("conv3x3", label, variant, dtype)] = row
+
+    summary.update(phase_lidar_splat(dev))
+    return summary
+
+
+def phase_lidar_splat(dev) -> dict:
+    """The splat kernel at the agent path's batches against its plain version:
+    exact, and the same in two runs. Seeded clouds (`example_point_cloud`)
+    with hot bins next to the ego, points beyond +-32 m, above
+    `max_height_lidar` and below the split plane, points on the bin edges,
+    and padding."""
+    from diffusiondrive_torch.entry import example_point_cloud
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.lidar_splat import _bin_indices, histogram2d, histogram2d_plain
+    from diffusiondrive_torch.ops.preprocessing import pad_point_cloud
+
+    cfg = TransfuserConfig()
+    N, bins = 131072, cfg.lidar_resolution_width
+    rng = np.random.default_rng(3)
+    clouds = [pad_point_cloud(example_point_cloud(rng, N - 2048 * b, cfg), N) for b in range(16)]
+    points = torch.from_numpy(np.stack([p for p, _ in clouds])).to(dev)
+    valid = torch.from_numpy(np.stack([v for _, v in clouds])).to(dev)
+    keep = valid & (points[..., 2] < cfg.max_height_lidar) & (points[..., 2] > cfg.lidar_split_height)
+    ix, iy = _bin_indices(points[..., :2], keep, cfg.lidar_min_x, cfg.lidar_max_x,
+                          cfg.lidar_min_y, cfg.lidar_max_y, bins)
+    summary = {}
+    for B in (16, 1):
+        bx, by = ix[:B].contiguous(), iy[:B].contiguous()
+        got, again, want = histogram2d(bx, by, bins), histogram2d(bx, by, bins), histogram2d_plain(bx, by, bins)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if err != 0 or not torch.equal(got, again):
+            raise AssertionError(f"lidar_splat B={B}: max abs err {err} (must be 0), "
+                                 f"repeatable {torch.equal(got, again)}")
+        if not torch.equal(want.cpu(), histogram2d_plain(bx.cpu(), by.cpu(), bins)):
+            raise AssertionError(f"lidar_splat B={B}: plain version differs between card and CPU")
+        # library yardstick: one scatter_add_ of ones into a (B*bins^2 + 1) buffer, skipped
+        # points into the last (overflow) bucket, as `histogram2d_jax` does
+        ok = bx >= 0
+        batch = torch.arange(B, device=dev)[:, None] * bins * bins
+        flat = torch.where(ok, batch + bx.long() * bins + by.long(), B * bins * bins).flatten()
+        ones = torch.ones(flat.shape, device=dev)
+        buf = torch.zeros(B * bins * bins + 1, device=dev)
+        nbytes = 8.0 * B * N + 4.0 * B * bins * bins
+        bms, by_what = bound_ms(0.0, nbytes, torch.float32)
+        row = dict(shape=[B, N], bins=bins, points_counted=int(ok.sum().item()),
+                   hottest_bin=int(want.max().item()), max_abs_err=err,
+                   kernel_ms=time_ms(lambda: histogram2d(bx, by, bins)),
+                   plain_ms=time_ms(lambda: histogram2d_plain(bx, by, bins)),
+                   library_ms=time_ms(lambda: buf.scatter_add_(0, flat, ones)),
+                   bound_ms=bms, bound_by=by_what)
+        log(f"kernel lidar_splat b{B}", **row)
+        summary[("lidar_splat", B)] = row
     return summary
 
 
@@ -250,6 +317,110 @@ def phase_main_path(dev) -> dict:
     return counts
 
 
+def phase_agent_path(dev) -> dict:
+    from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
+    from diffusiondrive_torch.agents.diffusiondrive.features import RawSensorFeatureBuilder
+    from diffusiondrive_torch.entry import agent_entry, example_agent_input
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.ops.stem_fused import fused_stem
+
+    cfg = TransfuserConfig()
+    builder = RawSensorFeatureBuilder(cfg)
+    fused_stem.launches = fused_conv3x3.launches = histogram2d.launches = 0
+    forwards = 0
+    with torch.no_grad():
+        # (a) float32, B=1: the agent on the card against the same agent on the CPU, one
+        # fixed noise draw for both (each device's generator draws its own)
+        agents = {d: DiffusionDriveAgent(cfg, dtype=torch.float32, seed=0, preprocess_on_device=True,
+                                         device=d) for d in ("cpu", dev)}
+        feats = {k: np.asarray(v)[None] for k, v in
+                 builder.compute_features(example_agent_input(cfg, seed=1)).items()}
+        noise = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(1, cfg.ego_fut_mode, cfg.num_poses, 2)).astype(np.float32))
+        res = {}
+        for d, agent in agents.items():
+            agent.initialize()
+            t = agent.features_to_device(feats)
+            camera, bev = agent.preprocess(t)
+            out = agent.model(camera, bev, t["status_feature"], diffusion_noise=noise.to(agent.device))
+            res[d] = (camera.cpu(), bev.cpu(), {k: v.cpu() for k, v in out.items()})
+        torch.cuda.synchronize()
+        forwards += 1
+        (cam_c, bev_c, out_c), (cam_g, bev_g, out_g) = res["cpu"], res[dev]
+        cam_err = (cam_g - cam_c).abs().max().item()
+        if not cam_err <= 1e-6 or not torch.equal(bev_g, bev_c):
+            raise AssertionError(f"agent_path f32: camera err {cam_err} (limit 1e-6), BEV exact "
+                                 f"{torch.equal(bev_g, bev_c)}")
+        _outputs_ok(out_g, 1)
+        errs = {k: check_close(f"agent_path f32 {k}", out_g[k], out_c[k], MAIN_TOL)[0] for k in out_c}
+        cls = out_c["poses_cls"][0]
+        top2 = cls.topk(2).values
+        if int(out_g["poses_cls"].argmax(-1).item()) != int(cls.argmax().item()):
+            raise AssertionError(f"agent_path argmax mode differs (CPU top-2 gap {float(top2[0] - top2[1])})")
+        log("agent_path f32 b1 card-vs-cpu", camera_max_abs_err=cam_err, bev_exact=True,
+            max_abs_err=errs, tol_rel=MAIN_TOL, argmax_equal=True, cpu_top2_gap=float(top2[0] - top2[1]))
+        del agents, res
+
+        # (b) bf16: compute_trajectory at B=1, forward at B=16
+        agent, agent_input = agent_entry(dev, torch.bfloat16, seed=0)
+        for _ in range(2):
+            traj = agent.compute_trajectory(agent_input)
+        forwards += 2
+        if traj.poses.shape != (cfg.num_poses, 3) or not np.isfinite(traj.poses).all():
+            raise AssertionError(f"compute_trajectory: {traj.poses.shape}, finite "
+                                 f"{np.isfinite(traj.poses).all()}")
+        batches = {1: {k: np.asarray(v)[None] for k, v in builder.compute_features(agent_input).items()}}
+        many = [builder.compute_features(example_agent_input(cfg, seed=100 + b)) for b in range(16)]
+        batches[16] = {k: np.stack([f[k] for f in many]) for k in many[0]}
+        del many
+        rows = {}
+        for batch, iters in ((1, 10), (16, 5)):
+            features = batches[batch]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                tensors = agent.features_to_device(features)
+            torch.cuda.synchronize()
+            h2d_ms = (time.perf_counter() - t0) / iters * 1e3
+            for _ in range(2):
+                out = agent.predict(tensors)
+            torch.cuda.synchronize()
+            _outputs_ok(out, batch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = agent.predict(tensors)
+            torch.cuda.synchronize()
+            dev_s = (time.perf_counter() - t0) / iters
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                if batch == 1:
+                    traj = agent.compute_trajectory(agent_input)
+                else:
+                    out_np = agent.forward(features)
+            e2e_s = (time.perf_counter() - t0) / iters
+            forwards += 2 * iters + 2
+            if batch == 16:
+                _outputs_ok({k: torch.from_numpy(v) for k, v in out_np.items()}, batch)
+            rows[batch] = dict(
+                call="compute_trajectory" if batch == 1 else "forward",
+                frames_per_s_on_card=batch / dev_s, ms_per_call_on_card=dev_s * 1e3,
+                frames_per_s_with_copy=batch / e2e_s, ms_per_call_with_copy=e2e_s * 1e3,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            log(f"agent_path h2d b{batch}", ms_per_call=h2d_ms,
+                mbytes=sum(v.nbytes for v in features.values()) / 1e6)
+            log(f"agent_path bf16 b{batch}", **rows[batch])
+    counts = {"splat": histogram2d.launches, "stem": fused_stem.launches,
+              "conv3x3": fused_conv3x3.launches}
+    if counts != {"splat": forwards, "stem": 2 * forwards, "conv3x3": 12 * forwards}:
+        raise AssertionError(f"launch counts {counts} over {forwards} agent forwards, "
+                             f"want 1 splat, 2 stem and 12 conv3x3 each")
+    log("agent_path launches", forwards=forwards, **counts)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -263,20 +434,24 @@ def main() -> int:
     phase_device()
     phase_build()
     summary = phase_kernels(dev)
-    counts = phase_main_path(dev)
+    counts = {"main_path": phase_main_path(dev), "agent_path": phase_agent_path(dev)}
 
     bf = torch.bfloat16
     kernels = []
-    for name, row, src, replaces, errs in (
-        ("stem_fused", summary[("stem", "camera", bf)], "diffusiondrive_torch/csrc/stem_fused.cu",
+    for name, key, row, src, replaces, errs in (
+        ("stem_fused", "stem", summary[("stem", "camera", bf)], "diffusiondrive_torch/csrc/stem_fused.cu",
          "diffusiondrive_tpu/ops/stem_fused.py:95",
          [summary[("stem", lbl, bf)]["max_abs_err"] for lbl in ("camera", "lidar")]),
-        ("conv3x3_fused", summary[("conv3x3", "image", "residual", bf)],
+        ("conv3x3_fused", "conv3x3", summary[("conv3x3", "image", "residual", bf)],
          "diffusiondrive_torch/csrc/conv3x3_fused.cu", "diffusiondrive_tpu/ops/conv_fused.py:55",
          [v["max_abs_err"] for k, v in summary.items() if k[0] == "conv3x3" and k[-1] == bf]),
+        ("lidar_splat", "splat", summary[("lidar_splat", 16)], "diffusiondrive_torch/csrc/lidar_splat.cu",
+         "diffusiondrive_tpu/ops/lidar_splat.py:47",
+         [v["max_abs_err"] for k, v in summary.items() if k[0] == "lidar_splat"]),
     ):
+        by_path = {path: c[key] for path, c in counts.items() if key in c}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts["stem" if name == "stem_fused" else "conv3x3"],
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(errs), "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "pass": True})

@@ -1,4 +1,4 @@
-"""Index layouts (copy of `diffusiondrive_tpu/common/enums.py:BoundingBox2DIndex`)."""
+"""Index layouts (copies of `diffusiondrive_tpu/common/enums.py:BoundingBox2DIndex`, `LidarIndex`)."""
 
 
 class BoundingBox2DIndex:
@@ -16,3 +16,21 @@ class BoundingBox2DIndex:
     @classmethod
     def size(cls) -> int:
         return 5
+
+
+class LidarIndex:
+    """Layout of a packed lidar point-cloud array (6, num_points)."""
+
+    X = 0
+    Y = 1
+    Z = 2
+    INTENSITY = 3
+    RING = 4
+    ID = 5
+
+    POINT2D = slice(0, 2)
+    POSITION = slice(0, 3)
+
+    @classmethod
+    def size(cls) -> int:
+        return 6

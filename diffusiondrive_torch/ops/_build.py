@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface and becomes its own shared
 library, `_build/<name>-<hash>.so`, keyed by a hash of the sources and the
 flags, and loaded with `ctypes`. A source that includes no PyTorch header
 builds in seconds, against minutes for `torch.utils.cpp_extension.load`.
-`build_all()` starts one `nvcc` per source at once and waits for all.
+`build_all()` starts one `nvcc` per source in `csrc/` at once and waits for
+all.
 
 Without `nvcc` (no CUDA toolkit) a build raises: the kernels are reached
 only from CUDA tensors, and a CUDA tensor reaches its kernel or raises.
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -68,9 +69,16 @@ def _finish(proc: subprocess.Popen) -> str:
     return log
 
 
-def build_all(names: Sequence[str] = ("stem_fused", "conv3x3_fused")) -> Dict[str, str]:
-    """Build every named kernel library that is not built yet, one `nvcc` per
-    source, all started together. Returns each new build's compiler log."""
+def kernel_names() -> List[str]:
+    """Every kernel source of the package: the stems of `csrc/*.cu`."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Build every named kernel library (default: every `csrc/*.cu`) that is
+    not built yet, one `nvcc` per source, all started together. Returns each
+    new build's compiler log."""
+    names = kernel_names() if names is None else names
     with _lock:
         procs = [_start(n, _target(n)) for n in names if not _target(n).exists()]
         try:

@@ -1,7 +1,9 @@
 """Spatial sampling ops (counterpart of `diffusiondrive_tpu/ops/sampling.py`).
 
 The port's feature maps are NCHW logical tensors (in channels_last memory),
-so these take NCHW where the JAX functions take NHWC.
+so these take NCHW where the JAX functions take NHWC. The exception is
+`resize_bilinear_no_aa`, which resizes NHWC camera images and keeps the JAX
+layout.
 """
 
 from __future__ import annotations
@@ -37,6 +39,35 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     if size == tuple(x.shape[2:]):
         return x
     return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+
+def resize_bilinear_no_aa(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize of NHWC (N, H, W, C) to (N, *size, C) WITHOUT
+    antialiasing: cv2 INTER_LINEAR semantics (half-pixel centers, 2-tap
+    kernel) also when downsampling. Returns float32.
+
+    The float32 index arithmetic, the clips and the order of operations are
+    those of the JAX function, so both give the same values. The four taps
+    are gathered in `x`'s dtype and converted after the gather (exact for a
+    uint8 image), so a uint8 input is never materialised in float32 at full
+    size.
+    """
+    N, H, W, C = x.shape
+    oh, ow = int(size[0]), int(size[1])
+    ys = (torch.arange(oh, dtype=torch.float32, device=x.device) + 0.5) * (H / oh) - 0.5
+    xs = (torch.arange(ow, dtype=torch.float32, device=x.device) + 0.5) * (W / ow) - 0.5
+
+    y0 = torch.clamp(torch.floor(ys), 0, H - 1).long()
+    x0 = torch.clamp(torch.floor(xs), 0, W - 1).long()
+    y1 = torch.clamp_max(y0 + 1, H - 1)
+    x1 = torch.clamp_max(x0 + 1, W - 1)
+    ty = torch.clamp(ys - y0, 0.0, 1.0)[None, :, None, None]
+    tx = torch.clamp(xs - x0, 0.0, 1.0)[None, None, :, None]
+
+    rows0, rows1 = x.index_select(1, y0), x.index_select(1, y1)
+    top = rows0.index_select(2, x0).float() * (1 - tx) + rows0.index_select(2, x1).float() * tx
+    bot = rows1.index_select(2, x0).float() * (1 - tx) + rows1.index_select(2, x1).float() * tx
+    return top * (1 - ty) + bot * ty
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: Sequence[int]) -> torch.Tensor:

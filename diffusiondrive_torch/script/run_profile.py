@@ -1,8 +1,10 @@
-"""Planner-forward profile on the card: where one forward's time goes.
+"""Planner- or agent-forward profile on the card: where one forward's time goes.
 
-Builds the full-width bf16 planner (`entry.py`, seeded random weights), runs
-3 warm-up forwards, then `FORWARDS` forwards under `torch.profiler`, and
-prints JSON lines: host wall ms per forward, device busy ms per forward (the union of
+Builds the full-width bf16 planner (`entry.py`, seeded random weights) or,
+with `--agent`, the raw-sensor agent (`entry.agent_entry`: the camera stitch
+and the lidar BEV splat on the device, then the planner) fed a batch of raw
+features already on the card; runs 3 warm-up forwards, then `FORWARDS`
+forwards under `torch.profiler`, and prints JSON lines: host wall ms per forward, device busy ms per forward (the union of
 kernel intervals) and the device's idle share, kernel launches and
 host-to-device copies per forward; for each model component (module paths
 up to depth `DEPTH`, inclusive of their children) its device busy ms, kernel
@@ -12,6 +14,7 @@ above an unprofiled forward's. Needs a CUDA device; there is no CPU fallback.
 
 Example (one GPU):
     python -m diffusiondrive_torch.script.run_profile --batch 16 --trace trace.json
+    python -m diffusiondrive_torch.script.run_profile --batch 16 --agent
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -51,6 +55,28 @@ def _annotate(model: torch.nn.Module, depth: int) -> list:
     return names
 
 
+def _ranged(fn, name: str):
+    """`fn` inside a profiler range called `name`."""
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _agent_forward(batch: int):
+    """(forward, model, extra component names) for the raw-sensor agent path."""
+    from diffusiondrive_torch.agents.diffusiondrive import agent as agent_module
+    from diffusiondrive_torch.entry import agent_entry
+
+    agent, agent_input = agent_entry(dtype=torch.bfloat16)
+    feats = agent.get_feature_builders()[0].compute_features(agent_input)
+    tensors = agent.features_to_device({k: np.stack([v] * batch) for k, v in feats.items()})
+    extra = ["stitch_cameras", "lidar_bev"]
+    for name in extra:
+        setattr(agent_module, name, _ranged(getattr(agent_module, name), name))
+    return (lambda: agent.predict(tensors)), agent.model, extra
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -68,24 +94,30 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
+    parser.add_argument("--agent", action="store_true",
+                        help="profile the raw-sensor agent path, not the planner alone")
     args = parser.parse_args()
 
     from diffusiondrive_torch.entry import entry
 
     if not torch.cuda.is_available():
         raise SystemExit("run_profile: no CUDA device")
-    model, inputs = entry(dtype=torch.bfloat16, batch=args.batch)
-    components = _annotate(model, DEPTH)
-    gen = torch.Generator(device=inputs["status_feature"].device)
+    if args.agent:
+        forward, model, extra = _agent_forward(args.batch)
+    else:
+        model, inputs = entry(dtype=torch.bfloat16, batch=args.batch)
+        gen = torch.Generator(device=inputs["status_feature"].device)
+        forward, extra = (lambda: model(**inputs, generator=gen.manual_seed(0))), []
+    components = _annotate(model, DEPTH) + extra
     n = FORWARDS
     with torch.no_grad():
         for _ in range(3):
-            model(**inputs, generator=gen.manual_seed(0))
+            forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                model(**inputs, generator=gen.manual_seed(0))
+                forward()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
     if args.trace:
@@ -116,6 +148,7 @@ def main() -> None:
             by_component[e.name][2] += e.time_range.elapsed_us() / 1e3 / n
 
     print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": "bfloat16", "batch": args.batch,
+                      "path": "agent" if args.agent else "planner",
                       "forwards": n, "wall_ms_per_forward": wall_ms,
                       "device_busy_ms_per_forward": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,

@@ -10,6 +10,7 @@ import torch
 
 from diffusiondrive_torch.models.resnet import ResNetStem
 from diffusiondrive_torch.ops.conv_fused import conv3x3_plain, fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
 
 
@@ -52,3 +53,23 @@ def test_cuda_stem_with_unsupported_shape_raises(cuda_device):
     stem = ResNetStem(5).to(cuda_device).eval()
     with torch.no_grad(), pytest.raises(ValueError, match="not supported"):
         stem(torch.zeros(1, 5, 64, 64, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,bins", [(3, 5000, 256), (2, 1000, 64), (1, 0, 16), (2, 777, 300)])
+def test_cuda_histogram_matches_plain_version_exactly(cuda_device, B, N, bins):
+    """Counts are integers: the kernel equals its plain version exactly, in
+    every run. Covers a hot bin, skipped points (either index -1), an empty
+    cloud and a grid whose last band of rows is partial (bins=300)."""
+    g = torch.Generator().manual_seed(bins)
+    ix = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
+    iy = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
+    ix[:, : N // 3], iy[:, : N // 3] = 5, 7
+    ix, iy = ix.to(cuda_device), iy.to(cuda_device)
+    want = histogram2d_plain(ix, iy, bins)
+    for _ in range(2):
+        got = histogram2d(ix, iy, bins)
+        torch.cuda.synchronize()
+        assert got.shape == (B, bins, bins) and torch.equal(got, want)
+    with pytest.raises(TypeError, match="int32"):
+        histogram2d(ix.long(), iy.long(), bins)
