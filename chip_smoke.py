@@ -30,7 +30,38 @@ line per phase, then one JSON line per kernel summary, then the result:
                ms on its own line, peak memory. The counters are set to 0
                before this phase and must read 1 splat, 2 stem and 12 conv3x3
                launches per agent forward after it.
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+6. ``kernel lap b8`` / ``b64`` the batched Hungarian kernel at n=30 (float32
+               costs from a seed, half of each batch integer costs in [0, 4)
+               for ties): its assignment equals the plain version's on the
+               card exactly and its total cost scipy's within 1e-5 relative;
+               kernel_ms, plain_ms, library_ms (scipy on the host, with the
+               copy: no PyTorch call solves an assignment), bound_ms and
+               ptxas registers/spills; the kernel makes no host sync
+               (`torch.cuda.set_sync_debug_mode`).
+7. ``train_path`` the training path at full width. (a) ``bf16``: `Trainer.fit` over a
+               `CacheOnlyDataset` of 3*B seeded samples at B=8 and B=64 (two
+               epochs: the second is timed; validation of the weights and of
+               the EMA; a checkpoint): steps/s, samples/s, ms per step, peak
+               memory, the loss terms (all finite), host syncs in one train
+               step (`torch.cuda.set_sync_debug_mode`). The counters are set
+               to 0 just before each fit and read just after it; they must
+               read exactly 1 LAP launch per train step and per validation
+               forward, no stem or conv3x3 launch in a train epoch, and
+               2 stem + 12 conv3x3 per validation forward; the path's count
+               is their sum over both fits.
+               (b) ``f32``: one float32 train step at B=2 on the card
+               against the same step on the CPU, with a float64 step on
+               each as the witness (same seeded weights and inputs, dropout
+               off, fixed timesteps and noise, targets placed at the
+               predictions so the detection assignment is unique): every loss term within
+               1e-3 x max(1, |CPU|); per parameter, the card's float64
+               gradient within 1e-6 relative L2 of the CPU's, and the
+               card's float32 gradient within min(1e-2 + 2 x the CPU f32
+               gradient's distance, 0.1) of the CPU's float64 one (reason
+               in `phase_train_f32`); the BN running statistics within
+               1e-4 x max(1, |CPU|). Logs where the float32 steps leave the
+               float64 one, by module (forward) and by part (gradients).
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -42,7 +73,9 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -106,7 +139,7 @@ def phase_device() -> str:
     return out
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from diffusiondrive_torch.ops import _build
 
     t0 = time.time()
@@ -118,6 +151,7 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln]
     log("build", seconds=round(time.time() - t0, 3), built=sorted(logs),
         kernels=_build.kernel_names(), ptxas=stats[:24])
+    return logs
 
 
 def phase_kernels(dev) -> dict:
@@ -421,6 +455,286 @@ def phase_agent_path(dev) -> dict:
     return counts
 
 
+def phase_lap(dev, build_logs: dict) -> dict:
+    """The LAP kernel at n=30, B=8 and B=64, against its plain version on the
+    card (exact) and scipy on the host (total cost)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
+
+    ptxas = [ln.strip() for ln in build_logs.get("lap", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    n = 30
+    rng = np.random.default_rng(30)
+    summary = {}
+    for B in (8, 64):
+        costs = rng.normal(size=(B, n, n)).astype(np.float32)
+        costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, n, n))  # ties
+        c = torch.from_numpy(costs).to(dev)
+        got, want = batched_linear_sum_assignment(c), linear_sum_assignment_plain(c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"lap B={B}: kernel assignment differs from the plain version's")
+        syncs = _syncs_in(lambda: batched_linear_sum_assignment(c))
+        if syncs:
+            raise AssertionError(f"lap B={B}: the assignment synchronised with the host: {syncs}")
+        worst = 0.0
+        for cb, col in zip(costs, got.cpu().numpy()):
+            r, cs = linear_sum_assignment(cb)
+            opt = cb[r, cs].sum(dtype=np.float64)
+            worst = max(worst, abs(cb[np.arange(n), col].sum(dtype=np.float64) - opt) / max(1.0, abs(opt)))
+        if not worst <= 1e-5:
+            raise AssertionError(f"lap B={B}: total cost {worst} relative above scipy's optimum")
+
+        def scipy_host():
+            host = c.cpu().numpy()  # the copy and the sync the reference pays every step
+            return [linear_sum_assignment(x)[1] for x in host]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            scipy_host()
+        library_ms = (time.perf_counter() - t0) / 10 * 1e3
+        bms, by = bound_ms(0.0, 4.0 * B * n * n + 4.0 * B * n, torch.float32)
+        row = dict(shape=[B, n, n], ties_in=f"{B - B // 2} of {B} problems", max_abs_err=0, host_syncs=0,
+                   scipy_max_rel_cost_gap=worst,
+                   kernel_ms=time_ms(lambda: batched_linear_sum_assignment(c)),
+                   plain_ms=time_ms(lambda: linear_sum_assignment_plain(c), iters=3, warmup=1),
+                   library_ms=library_ms, library="scipy.optimize.linear_sum_assignment on the host, "
+                   "with the device-to-host copy (not a PyTorch call)",
+                   bound_ms=bms, bound_by=by, dependent_warp_argmins=n * (n + 1), ptxas=ptxas)
+        log(f"kernel lap b{B}", **row)
+        summary[("lap", B)] = row
+    return summary
+
+
+def _quantiles(vals) -> dict:
+    v = np.sort(np.asarray(list(vals)))
+    return {"median": float(np.median(v)), "p90": float(v[int(0.9 * (len(v) - 1))]), "max": float(v[-1])}
+
+
+# the model's parts, in the order the backward reaches them
+_GRAD_GROUPS = ("trajectory_head", "agent_head", "bev_semantic", "tf_decoder", "bev_proj", "keyval_embedding",
+                "query_embedding", "status_encoding", "bev_downscale", "backbone.up_conv", "backbone.c5_conv",
+                "backbone.fusion3", "backbone.fusion2", "backbone.fusion1", "backbone.fusion0",
+                "backbone.image_encoder_layer4", "backbone.lidar_encoder_layer4",
+                "backbone.image_encoder_layer3", "backbone.lidar_encoder_layer3",
+                "backbone.image_encoder_layer2", "backbone.lidar_encoder_layer2",
+                "backbone.image_encoder_layer1", "backbone.lidar_encoder_layer1",
+                "backbone.image_encoder_stem", "backbone.lidar_encoder_stem")
+
+
+def _by_group(dist: dict) -> dict:
+    """Median of a per-parameter distance over each part of the model."""
+    out = {}
+    for g in _GRAD_GROUPS:
+        vals = [v for k, v in dist.items() if k.startswith(g)]
+        if vals:
+            out[g] = float(np.median(vals))
+    return out
+
+
+def _first_above(dist: dict, limit: float):
+    return next(((k, v) for k, v in dist.items() if v > limit), None)
+
+
+def phase_train_f32(dev) -> None:
+    """One float32 train step at full width, B=2: the card against the CPU,
+    with a float64 step on each as the witness (`entry.train_step_on`).
+
+    Loss terms: card f32 vs CPU f32 within 1e-3 x max(1, |CPU|). Gradients,
+    per parameter by relative L2 (`entry.grad_distances`): card f64 vs CPU
+    f64 within 1e-6 (the card's arithmetic, with the conditioning of the
+    model taken out), and card f32 vs CPU f64 within min(1e-2 + 2 x the CPU
+    f32 step's own distance to it, 0.1): the card's float32 step is held to
+    the CPU's float32 accuracy against the same float64 reference. The
+    float32 gradient of a train-mode BatchNorm network is a sum with heavy
+    cancellation (the BN backward subtracts the batch mean of the incoming
+    gradient), so at full width it sits percents from the float64 one on
+    every device (PERF.md, PR 3). BN running statistics: card f32 vs CPU f32
+    within 1e-4 x max(1, |CPU|). Every run reads the same inputs
+    (`entry.comparison_batch`, the camera normalised on the host). Also
+    logged: the card f32 step with cuDNN off, and where each step's forward
+    outputs leave the float64 ones, module by module.
+    """
+    from diffusiondrive_torch.entry import (
+        build_model, comparison_batch, grad_distances, output_distances, train_step_on)
+    from diffusiondrive_torch.models.config import TransfuserConfig
+
+    cfg = TransfuserConfig()
+    model = build_model(cfg, torch.float32, seed=0).train()
+    batch, ts, noise = comparison_batch(model, cfg, 2, seed=5)
+    cpu = torch.device("cpu")
+    runs = {}
+    for label, d, dtype, cudnn in (("card_f32", dev, torch.float32, True), ("card_f64", dev, torch.float64, True),
+                                   ("card_f32_no_cudnn", dev, torch.float32, False),
+                                   ("cpu_f32", cpu, torch.float32, True), ("cpu_f64", cpu, torch.float64, True)):
+        t0 = time.perf_counter()
+        runs[label] = train_step_on(model, cfg, batch, ts, noise, d, dtype, cudnn=cudnn, record=True)
+        runs[label]["seconds"] = time.perf_counter() - t0
+        if d.type == "cuda" and runs[label]["lap_launches"] != 1:
+            raise AssertionError(f"train_path {label}: {runs[label]['lap_launches']} LAP launches, want 1")
+    ref = runs["cpu_f64"]
+    grads = {k: grad_distances(r["grads"], ref["grads"]) for k, r in runs.items() if k != "cpu_f64"}
+    outs = {k: output_distances(r["outputs"], ref["outputs"]) for k, r in runs.items() if k != "cpu_f64"}
+    lc, lg = runs["cpu_f32"]["losses"], runs["card_f32"]["losses"]
+    loss_err = {k: abs(lg[k] - v) for k, v in lc.items()}
+    sc, sg = runs["cpu_f32"]["stats"], runs["card_f32"]["stats"]
+    bn_err = max((sg[k] - b).abs().max().item() / max(1.0, b.abs().max().item()) for k, b in sc.items())
+    limit = {k: min(1e-2 + 2.0 * v, 0.1) for k, v in grads["cpu_f32"].items()}
+    over = {k: v / limit[k] for k, v in grads["card_f32"].items()}
+    worst = max(over, key=over.get)
+    worst64 = max(grads["card_f64"], key=grads["card_f64"].get)
+    log("train_path f32 b2 card-vs-cpu", losses_cpu=lc, loss_max_abs_err=loss_err, params=len(ref["grads"]),
+        seconds={k: r["seconds"] for k, r in runs.items()},
+        grad_rel_l2_vs_cpu_f64={k: _quantiles(v.values()) for k, v in grads.items()},
+        grad_worst_param=worst, grad_worst_rel_l2=grads["card_f32"][worst], grad_worst_limit=limit[worst],
+        grad_card_f64_worst=[worst64, grads["card_f64"][worst64]], bn_stats_max_rel_err=bn_err,
+        bn_tensors=len(sc))
+    log("train_path f32 b2 losses", **{k: r["losses"] for k, r in runs.items()})
+    log("train_path f32 b2 grads by part vs cpu_f64", order="backward", **{k: _by_group(v) for k, v in grads.items()})
+    log("train_path f32 b2 forward outputs vs cpu_f64", modules=len(outs["cpu_f32"]), order="forward", **{
+        k: {"first_above": {f"{t:g}": _first_above(v, t) for t in (1e-12, 1e-9, 1e-7, 1e-5, 1e-4)},
+            "worst": max(v.items(), key=lambda kv: kv[1])} for k, v in outs.items()})
+    for k, v in lc.items():
+        if not loss_err[k] <= 1e-3 * max(1.0, abs(v)):
+            raise AssertionError(f"train_path f32 {k}: card {lg[k]} vs CPU {v}")
+    if not grads["card_f64"][worst64] <= 1e-6:
+        raise AssertionError(f"train_path f64 grad {worst64}: card vs CPU relative L2 {grads['card_f64'][worst64]}")
+    if not over[worst] <= 1.0:
+        raise AssertionError(f"train_path f32 grad {worst}: relative L2 to the CPU's float64 step "
+                             f"{grads['card_f32'][worst]} > {limit[worst]}")
+    if not bn_err <= 1e-4:
+        raise AssertionError(f"train_path f32 BN running statistics: max rel err {bn_err} > 1e-4")
+
+
+class _Counts:
+    """Trainer callback: the kernel launch counters at each epoch's start and
+    end, by phase."""
+
+    def __init__(self):
+        from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+        from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+        from diffusiondrive_torch.ops.stem_fused import fused_stem
+
+        self.fns = {"lap": batched_linear_sum_assignment, "stem": fused_stem, "conv3x3": fused_conv3x3}
+        self.delta = {}
+        self.wall = {}
+        self._start = {}
+
+    def _now(self):
+        return {k: f.launches for k, f in self.fns.items()}
+
+    def on_epoch_start(self, phase, epoch):
+        torch.cuda.synchronize()
+        self._start[phase] = (self._now(), time.perf_counter())
+
+    def on_epoch_end(self, phase, epoch):
+        torch.cuda.synchronize()
+        counts, t0 = self._start[phase]
+        self.wall[(phase, epoch)] = time.perf_counter() - t0
+        self.delta[(phase, epoch)] = {k: v - counts[k] for k, v in self._now().items()}
+
+
+def _syncs_in(fn) -> list:
+    """The synchronising calls `fn` makes, as `set_sync_debug_mode("warn")`
+    reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0][:160] for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def phase_train_bf16(dev) -> dict:
+    """`Trainer.fit` in bf16 at full width over a seeded cache, B=8 and B=64."""
+    from diffusiondrive_torch.agents.diffusiondrive.features import (
+        TransfuserFeatureBuilder, TransfuserTargetBuilder)
+    from diffusiondrive_torch.entry import build_model, write_example_cache
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.training.dataset import CacheOnlyDataset, batch_iterator
+    from diffusiondrive_torch.training.train import OptimizerConfig, train_step
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    cfg = TransfuserConfig()
+    launches = {}
+    for B in (8, 64):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            t0 = time.perf_counter()
+            write_example_cache(Path(tmp) / "cache", cfg, 3 * B, seed=B)
+            cache_s = time.perf_counter() - t0
+            ds = CacheOnlyDataset(str(Path(tmp) / "cache"), [TransfuserFeatureBuilder(cfg)],
+                                  [TransfuserTargetBuilder(cfg)])
+            counts = _Counts()
+            opt = OptimizerConfig(epochs=2, warmup_epochs=1, steps_per_epoch=3, ema_decay=0.999)
+            trainer = Trainer(build_model(cfg, torch.bfloat16, seed=0).to(dev), cfg, opt,
+                              output_dir=str(Path(tmp) / "out"), seed=0, callbacks=[counts])
+            torch.cuda.reset_peak_memory_stats()
+            for f in counts.fns.values():
+                f.launches = 0
+            trainer.fit(lambda epoch: batch_iterator(ds, B, seed=epoch), 2,
+                        val_batches=lambda epoch: batch_iterator(ds, B, shuffle=False),
+                        validate_every_epochs=2, checkpoint_every_epochs=2)
+            torch.cuda.synchronize()
+            fit_counts = counts._now()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if not (Path(tmp) / "out" / "epoch_0001" / "state.pt").exists():
+                raise AssertionError(f"train_path bf16 b{B}: no checkpoint written")
+            train_rows = [json.loads(ln) for ln in (Path(tmp) / "out" / "metrics.jsonl").read_text().splitlines()
+                          if '"train"' in ln]
+            if len(train_rows) != 6 or not all(np.isfinite(v) for r in train_rows for v in r.values()
+                                               if isinstance(v, float)):
+                raise AssertionError(f"train_path bf16 b{B}: metrics rows {train_rows}")
+            val = trainer.last_val_metrics
+            if not val or not all(np.isfinite(v) for v in val.values()):
+                raise AssertionError(f"train_path bf16 b{B}: validation metrics {val}")
+            for epoch in (0, 1):
+                if counts.delta[("train", epoch)] != {"lap": 3, "stem": 0, "conv3x3": 0}:
+                    raise AssertionError(f"train_path bf16 b{B} train epoch {epoch}: launches "
+                                         f"{counts.delta[('train', epoch)]}, want 3 LAP, no stem/conv3x3")
+            forwards = 3 * 2  # 3 batches, weights and EMA
+            if counts.delta[("val", 1)] != {"lap": forwards, "stem": 2 * forwards, "conv3x3": 12 * forwards}:
+                raise AssertionError(f"train_path bf16 b{B} validation: launches {counts.delta[('val', 1)]} "
+                                     f"over {forwards} forwards, want 1 LAP, 2 stem, 12 conv3x3 each")
+            if fit_counts != {k: sum(d[k] for d in counts.delta.values()) for k in fit_counts}:
+                raise AssertionError(f"train_path bf16 b{B}: launches {fit_counts} outside the epochs")
+            for k, v in fit_counts.items():
+                launches[k] = launches.get(k, 0) + v
+            step_s = counts.wall[("train", 1)] / 3
+            # host syncs in one more train step (after the count is read)
+            batch = trainer.to_device(next(iter(batch_iterator(ds, B, shuffle=False))))
+            step_syncs = _syncs_in(lambda: train_step(trainer.state, cfg, batch, trainer.step_generator(99)))
+            row = dict(steps_per_s=1.0 / step_s, samples_per_s=B / step_s, ms_per_step=step_s * 1e3,
+                       timed="second epoch, 3 steps, with batch loading and the copy",
+                       first_epoch_s=counts.wall[("train", 0)], val_s=counts.wall[("val", 1)],
+                       peak_mem_gb=peak_gb, cache_write_s=cache_s, train_losses_last=train_rows[-1],
+                       val=val, host_syncs_in_one_train_step=len(step_syncs),
+                       sync_sources=sorted(set(step_syncs))[:8], launches_fit=fit_counts,
+                       launches_train={k: counts.delta[("train", 0)][k] + counts.delta[("train", 1)][k]
+                                       for k in ("lap", "stem", "conv3x3")},
+                       launches_val=counts.delta[("val", 1)])
+            log(f"train_path bf16 b{B}", **row)
+            del trainer, batch
+            torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_path(dev) -> dict:
+    """The training path: `Trainer.fit` in bf16 (the launch counts are set
+    to 0 just before each fit and read just after it, summed over B=8 and
+    B=64), then the float32 card-vs-CPU step."""
+    counts = phase_train_bf16(dev)
+    log("train_path launches", **counts)
+    phase_train_f32(dev)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -432,9 +746,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     phase_device()
-    phase_build()
+    build_logs = phase_build()
     summary = phase_kernels(dev)
-    counts = {"main_path": phase_main_path(dev), "agent_path": phase_agent_path(dev)}
+    summary.update(phase_lap(dev, build_logs))
+    counts = {"main_path": phase_main_path(dev), "agent_path": phase_agent_path(dev),
+              "train_path": phase_train_path(dev)}
 
     bf = torch.bfloat16
     kernels = []
@@ -448,13 +764,17 @@ def main() -> int:
         ("lidar_splat", "splat", summary[("lidar_splat", 16)], "diffusiondrive_torch/csrc/lidar_splat.cu",
          "diffusiondrive_tpu/ops/lidar_splat.py:47",
          [v["max_abs_err"] for k, v in summary.items() if k[0] == "lidar_splat"]),
+        ("lap", "lap", summary[("lap", 64)], "diffusiondrive_torch/csrc/lap.cu",
+         "diffusiondrive_tpu/ops/hungarian.py:138",
+         [v["max_abs_err"] for k, v in summary.items() if k[0] == "lap"]),
     ):
         by_path = {path: c[key] for path, c in counts.items() if key in c}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(errs), "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "pass": True})
+                        "library_ms": row["library_ms"], "pass": True,
+                        **({"library": row["library"]} if "library" in row else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

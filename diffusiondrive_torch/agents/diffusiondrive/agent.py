@@ -5,9 +5,11 @@ batched numpy feature dict, either the host builder's (`camera_feature`,
 `lidar_feature`, `status_feature`) or the raw sensors of
 `RawSensorFeatureBuilder` (`preprocess_on_device=True`), whose stitch,
 resize and BEV splat then run on the device (`ops/preprocessing.py`), and
-returns numpy float32. Weights come from a seed or from a reference-layout
-`.pth`/`.ckpt` (the published checkpoint format); orbax checkpoints come
-with the training slice.
+returns numpy float32. Weights come from a seed, from a reference-layout
+`.pth`/`.ckpt` (the published checkpoint format) or from a checkpoint
+directory written by the port's `Trainer` (`use_ema` picks its EMA
+weights). The training interface (target builder, loss, optimiser,
+callbacks) is that of the JAX agent.
 
 The diffusion noise is drawn from a per-device generator re-seeded to 7 on
 each call: repeatable, as the JAX agent's fixed `PRNGKey(7)` is, but a
@@ -26,6 +28,7 @@ from diffusiondrive_torch.agents.abstract_agent import AbstractAgent
 from diffusiondrive_torch.agents.diffusiondrive.features import (
     RawSensorFeatureBuilder,
     TransfuserFeatureBuilder,
+    TransfuserTargetBuilder,
 )
 from diffusiondrive_torch.common.dataclasses import SensorConfig
 from diffusiondrive_torch.device import resolve_device
@@ -37,10 +40,13 @@ from diffusiondrive_torch.training.abstract_feature_target_builder import (
     AbstractFeatureBuilder,
     AbstractTargetBuilder,
 )
+from diffusiondrive_torch.training.callbacks import TimeLoggingCallback
+from diffusiondrive_torch.training.losses import transfuser_loss
+from diffusiondrive_torch.training.train import OptimizerConfig, build_optimizer
+from diffusiondrive_torch.training.trainer import checkpoint_state_dict, load_checkpoint
 from diffusiondrive_torch.utils.port_transfuser import load_transfuser_state_dict
 
 _TORCH_CHECKPOINTS = (".pth", ".ckpt", ".pt", ".bin")
-_TRAINING_SLICE = "comes with the training slice of the port"
 _NOISE_SEED = 7
 
 
@@ -53,16 +59,17 @@ class DiffusionDriveAgent(AbstractAgent):
 
     requires_scene = False
 
-    def __init__(self, config: Optional[TransfuserConfig] = None,
+    def __init__(self, config: Optional[TransfuserConfig] = None, lr: float = 6e-4,
                  checkpoint_path: Optional[str] = None, dtype: torch.dtype = torch.bfloat16,
                  seed: int = 0, preprocess_on_device: bool = False, use_ema: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         self._config = config or TransfuserConfig()
+        self._lr = lr
         self._checkpoint_path = checkpoint_path
         self._dtype = dtype
         self._seed = seed
         self._preprocess_on_device = preprocess_on_device
-        self._use_ema = use_ema  # selects EMA weights of an orbax checkpoint (training slice)
+        self._use_ema = use_ema  # load the EMA weights of a `Trainer` checkpoint
         self.device = resolve_device(device)
         self.model: Optional[DiffusionDriveModel] = None
         self._generator = torch.Generator(device=self.device)
@@ -75,8 +82,9 @@ class DiffusionDriveAgent(AbstractAgent):
         return self.__class__.__name__
 
     def initialize(self) -> None:
-        """Build the model once (idempotent): seeded weights or a reference
-        `.pth`, then the `plan_anchor_path` override; moves it to the device."""
+        """Build the model once (idempotent): seeded weights, a reference
+        `.pth` or a `Trainer` checkpoint directory, then the
+        `plan_anchor_path` override; moves it to the device."""
         if self.model is not None:
             return
         cfg = self._config
@@ -86,8 +94,10 @@ class DiffusionDriveAgent(AbstractAgent):
             model.load_state_dict(load_transfuser_state_dict(path, model), strict=True)
             model.eval()
         elif path:
-            raise NotImplementedError(f"{path}: loading orbax checkpoints {_TRAINING_SLICE}; "
-                                      f"pass a reference-layout {'/'.join(_TORCH_CHECKPOINTS)}")
+            model = DiffusionDriveModel(cfg, dtype=self._dtype)
+            payload = load_checkpoint(path, torch.device("cpu"))
+            model.load_state_dict(checkpoint_state_dict(payload, self._use_ema), strict=True)
+            model.eval()
         else:
             model = build_model(cfg, self._dtype, seed=self._seed)
         if cfg.plan_anchor_path and Path(cfg.plan_anchor_path).exists():
@@ -108,7 +118,7 @@ class DiffusionDriveAgent(AbstractAgent):
         return [TransfuserFeatureBuilder(self._config)]
 
     def get_target_builders(self) -> List[AbstractTargetBuilder]:
-        raise NotImplementedError(f"TransfuserTargetBuilder {_TRAINING_SLICE}")
+        return [TransfuserTargetBuilder(self._config)]
 
     def features_to_device(self, features: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The batched feature dict as tensors on the agent's device. Cameras
@@ -142,10 +152,17 @@ class DiffusionDriveAgent(AbstractAgent):
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     def compute_loss(self, features, targets, predictions):
-        raise NotImplementedError(f"the training loss {_TRAINING_SLICE}")
+        return transfuser_loss(targets, predictions, self._config)["loss"]
 
     def get_optimizers(self):
-        raise NotImplementedError(f"the optimizers {_TRAINING_SLICE}")
+        """(AdamW, LambdaLR) over the model's parameters, the image encoder's
+        group at `cfg_lr_mult`."""
+        self.initialize()
+        opt_cfg = OptimizerConfig(lr=self._lr, weight_decay=self._config.weight_decay,
+                                  image_encoder_lr_mult=self._config.cfg_lr_mult)
+        return build_optimizer(opt_cfg, self.model)
 
     def get_training_callbacks(self, output_dir=None):
-        raise NotImplementedError(f"the training callbacks {_TRAINING_SLICE}")
+        # the JAX agent adds a BEV visualisation callback when `output_dir`
+        # is given; it waits for the port's visualisation module
+        return [TimeLoggingCallback()]

@@ -8,21 +8,30 @@
   normalize); status = driving_command[4], velocity[2], acceleration[2].
 - `RawSensorFeatureBuilder`: the raw l0/f0/r0 images and the padded point
   cloud, for the agent's device preprocessing (`ops/preprocessing.py`).
-
-`TransfuserTargetBuilder` comes with the training slice.
+- `TransfuserTargetBuilder`: the GT trajectory, the 30 nearest vehicle boxes
+  (and their labels) and the 7-class BEV semantic map (map layers rasterised
+  when the scene has a map API, else zeros, then the box classes). It reads
+  a scene only through its attributes (`get_future_trajectory`,
+  `scene_metadata`, `frames[i].annotations`, `frames[i].ego_status`,
+  `map_api`), so any object that has them will do.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from diffusiondrive_torch.common.dataclasses import AgentInput
-from diffusiondrive_torch.common.enums import LidarIndex
+from diffusiondrive_torch.common.enums import BoundingBox2DIndex, BoundingBoxIndex, LidarIndex
+from diffusiondrive_torch.evaluate.state_array import box_to_corners
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.ops.preprocessing import pad_point_cloud
-from diffusiondrive_torch.training.abstract_feature_target_builder import AbstractFeatureBuilder
+from diffusiondrive_torch.planning.bev_raster import coords_to_pixel, rasterize_map_layers
+from diffusiondrive_torch.training.abstract_feature_target_builder import (
+    AbstractFeatureBuilder,
+    AbstractTargetBuilder,
+)
 
 
 def _status_feature(agent_input: AgentInput) -> np.ndarray:
@@ -111,3 +120,73 @@ class RawSensorFeatureBuilder(AbstractFeatureBuilder):
             "lidar_valid": valid,
             "status_feature": _status_feature(agent_input),
         }
+
+
+class TransfuserTargetBuilder(AbstractTargetBuilder):
+    """GT trajectory + nearest agent boxes + BEV semantic map."""
+
+    # BEV classes stamped from the annotations: static objects, vehicles, pedestrians
+    BOX_CLASSES = {4: ("czone_sign", "barrier", "traffic_cone", "generic_object"),
+                   5: ("vehicle",),
+                   6: ("pedestrian",)}
+
+    def __init__(self, config: TransfuserConfig):
+        self._config = config
+
+    def get_unique_name(self) -> str:
+        return "transfuser_target"
+
+    def compute_targets(self, scene) -> Dict[str, np.ndarray]:
+        cfg = self._config
+        trajectory = scene.get_future_trajectory(cfg.trajectory_sampling.num_poses).poses.astype(np.float32)
+        frame_idx = scene.scene_metadata.num_history_frames - 1
+        annotations = scene.frames[frame_idx].annotations
+        ego_pose = scene.frames[frame_idx].ego_status.ego_pose
+        agent_states, agent_labels = self._compute_agent_targets(annotations)
+        return {
+            "trajectory": trajectory,
+            "agent_states": agent_states,
+            "agent_labels": agent_labels,
+            "bev_semantic_map": self._compute_bev_semantic_map(annotations, scene.map_api, ego_pose),
+        }
+
+    def _compute_agent_targets(self, annotations) -> Tuple[np.ndarray, np.ndarray]:
+        """The `num_bounding_boxes` nearest in-range vehicle boxes as (x, y,
+        heading, length, width), zero-padded, and their bool labels."""
+        cfg = self._config
+        states: List[np.ndarray] = []
+        for box, name in zip(annotations.boxes, annotations.names):
+            x, y = box[BoundingBoxIndex.X], box[BoundingBoxIndex.Y]
+            if name == "vehicle" and (cfg.lidar_min_x <= x <= cfg.lidar_max_x
+                                      and cfg.lidar_min_y <= y <= cfg.lidar_max_y):
+                states.append(np.array([x, y, box[BoundingBoxIndex.HEADING], box[BoundingBoxIndex.LENGTH],
+                                        box[BoundingBoxIndex.WIDTH]], dtype=np.float32))
+        agent_states = np.zeros((cfg.num_bounding_boxes, BoundingBox2DIndex.size()), np.float32)
+        agent_labels = np.zeros(cfg.num_bounding_boxes, bool)
+        if states:
+            arr = np.stack(states)
+            arr = arr[np.argsort(np.linalg.norm(arr[:, :2], axis=-1))[:cfg.num_bounding_boxes]]
+            agent_states[:len(arr)] = arr
+            agent_labels[:len(arr)] = True
+        return agent_states, agent_labels
+
+    def _compute_bev_semantic_map(self, annotations, map_api, ego_pose) -> np.ndarray:
+        """The (bev_pixel_height, bev_pixel_width) int32 class raster."""
+        import cv2
+
+        cfg = self._config
+        bev = np.zeros(cfg.bev_semantic_frame, dtype=np.int64)
+        if map_api is not None:
+            bev = rasterize_map_layers(map_api, ego_pose, cfg)
+        for label, names in self.BOX_CLASSES.items():
+            mask = np.zeros(cfg.bev_semantic_frame[::-1], dtype=np.uint8)
+            for name, box in zip(annotations.names, annotations.boxes):
+                if name not in names:
+                    continue
+                corners = box_to_corners(*(np.float64(box[i]) for i in (
+                    BoundingBoxIndex.X, BoundingBoxIndex.Y, BoundingBoxIndex.HEADING,
+                    BoundingBoxIndex.LENGTH, BoundingBoxIndex.WIDTH)))
+                cv2.fillPoly(mask, [coords_to_pixel(corners.reshape(-1, 1, 2), cfg)], color=255)
+            mask = np.rot90(mask)[::-1]
+            bev[mask > 0] = label
+        return bev.astype(np.int32)

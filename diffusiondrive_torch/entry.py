@@ -7,12 +7,20 @@ in eval mode with seeded random weights, plus example inputs, on CUDA unless
 `__graft_entry__.entry()`. `agent_entry()` builds the
 `DiffusionDriveAgent` that preprocesses the raw sensors on the device, plus a
 seeded `AgentInput` (`example_agent_input`), for
-``agent.compute_trajectory(agent_input)``.
+``agent.compute_trajectory(agent_input)``. `example_training_sample` and
+`write_example_cache` make seeded feature/target pairs and a training cache
+of them (the format `training/dataset.py` reads) for the training path;
+`place_targets_at_predictions` makes a batch's detection assignment unique
+for comparisons across devices or packages; `train_step_on` runs one
+float32 or float64 train step of a copy of a model on a device and returns
+what such a comparison reads (`grad_distances`, `output_distances`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import copy
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,7 +29,7 @@ from diffusiondrive_torch.common.dataclasses import (
     CAMERA_NAMES, AgentInput, Camera, Cameras, EgoStatus, Lidar)
 from diffusiondrive_torch.device import resolve_device
 from diffusiondrive_torch.models.config import TransfuserConfig
-from diffusiondrive_torch.models.layers import flax_default_init_
+from diffusiondrive_torch.models.layers import disable_dropout, flax_default_init_
 from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 
 
@@ -139,3 +147,172 @@ def agent_entry(device: Optional[Union[str, torch.device]] = None,
                                 device=device)
     agent.initialize()
     return agent, example_agent_input(config, seed=seed + 1, num_points=num_points)
+
+
+def example_training_sample(config: TransfuserConfig, rng: np.random.Generator
+                            ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """One seeded (features, targets) pair in the cache's layout: a uint8
+    camera, a lidar BEV in [0, 1], the status; a forward-driving GT
+    trajectory, `num_bounding_boxes` agent slots with about a third valid,
+    and a BEV semantic map of class indices."""
+    cfg = config
+    camera = rng.integers(0, 256, (cfg.camera_height, cfg.camera_width, 3), dtype=np.uint8)
+    lidar = (rng.integers(0, 6, (cfg.lidar_resolution_height, cfg.lidar_resolution_width,
+                                 cfg.lidar_in_channels)) / 5.0).astype(np.float32)
+    command = np.eye(4, dtype=np.float32)[rng.integers(0, 4)]
+    status = np.concatenate([command, rng.normal(0.0, [5.0, 1.0, 1.0, 0.5], 4).astype(np.float32)])
+    speed = rng.uniform(0.0, 12.0)
+    t = np.arange(1, cfg.num_poses + 1) * cfg.trajectory_sampling.interval_length
+    heading = np.cumsum(rng.normal(0.0, 0.03, cfg.num_poses))
+    trajectory = np.stack([speed * t, np.cumsum(speed * 0.5 * np.sin(heading)), heading], -1)
+    n = cfg.num_bounding_boxes
+    agent_states = np.stack([rng.uniform(-32, 32, n), rng.uniform(-32, 32, n), rng.uniform(-np.pi, np.pi, n),
+                             rng.uniform(3.5, 6.0, n), rng.uniform(1.6, 2.4, n)], -1).astype(np.float32)
+    agent_labels = rng.uniform(size=n) < 0.35
+    agent_states[~agent_labels] = 0.0
+    bev = rng.integers(0, cfg.num_bev_classes, cfg.bev_semantic_frame).astype(np.int32)
+    features = {"camera_feature": camera, "lidar_feature": lidar, "status_feature": status}
+    targets = {"trajectory": trajectory.astype(np.float32), "agent_states": agent_states,
+               "agent_labels": agent_labels, "bev_semantic_map": bev}
+    return features, targets
+
+
+def write_example_cache(path: Union[str, Path], config: TransfuserConfig, num_samples: int,
+                        seed: int = 0) -> Path:
+    """A training cache of `num_samples` `example_training_sample`s under
+    ``<path>/example_log/<token>/`` (`transfuser_feature.gz`,
+    `transfuser_target.gz`), as dataset caching writes it. Returns `path`."""
+    from diffusiondrive_torch.training.dataset import dump_feature_target
+
+    rng = np.random.default_rng(seed)
+    root = Path(path)
+    for i in range(num_samples):
+        token_dir = root / "example_log" / f"token_{i:05d}"
+        token_dir.mkdir(parents=True, exist_ok=True)
+        features, targets = example_training_sample(config, rng)
+        dump_feature_target(features, token_dir / "transfuser_feature.gz")
+        dump_feature_target(targets, token_dir / "transfuser_target.gz")
+    return root
+
+
+def place_targets_at_predictions(batch: Dict[str, np.ndarray], pred_states: np.ndarray,
+                                 rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """`batch` with each sample's agent target boxes moved to a random
+    permutation of the model's own predicted boxes (B, N, 5), plus 0.1 of
+    noise.
+
+    Near a random initialisation the predicted boxes cluster, and the L1 box
+    cost of a cluster against targets outside it is separable, so many
+    detection assignments cost the same; a last-bit difference between two
+    runs (another device, another package) then picks another one and the
+    losses differ. With every target next to its own prediction the optimal
+    assignment is unique, so such runs can be compared.
+    """
+    perm = np.stack([rng.permutation(pred_states.shape[1]) for _ in range(pred_states.shape[0])])
+    moved = np.take_along_axis(pred_states, perm[..., None], 1) + rng.normal(0.0, 0.1, pred_states.shape)
+    return {**batch, "agent_states": moved.astype(np.float32)}
+
+
+def comparison_batch(model: DiffusionDriveModel, config: TransfuserConfig, batch_size: int,
+                     seed: int) -> Tuple[Dict[str, np.ndarray], torch.Tensor, torch.Tensor]:
+    """(batch, timesteps, noise) for comparing train steps of `model`:
+    seeded `example_training_sample`s and diffusion draws, with the agent
+    targets placed at the model's own predictions for those draws
+    (`place_targets_at_predictions`, a float32 training forward on the CPU
+    with dropout off), so the detection assignment is unique.
+
+    The camera comes normalised to float32 on the host, so every device
+    reads the same input: on the card the model's own ``x / 255`` of a
+    uint8 camera runs as ``x * (1 / 255)``, one ulp off the CPU's division
+    for some pixels, and the train step's gradients amplify that (PERF.md).
+    """
+    from diffusiondrive_torch.training.dataset import collate
+
+    rng = np.random.default_rng(seed)
+    batch = collate([example_training_sample(config, rng) for _ in range(batch_size)])
+    batch["camera_feature"] = batch["camera_feature"].astype(np.float32) / np.float32(255.0)
+    timesteps = torch.from_numpy(rng.integers(0, config.diffusion_train_max_t, batch_size))
+    noise = torch.from_numpy(rng.normal(size=(batch_size, config.ego_fut_mode, config.num_poses, 2))
+                             .astype(np.float32))
+    probe = copy.deepcopy(model).cpu().train()
+    disable_dropout(probe)
+    with torch.no_grad():
+        pred = probe(*(torch.from_numpy(batch[k]) for k in ("camera_feature", "lidar_feature", "status_feature")),
+                     timesteps=timesteps, diffusion_noise=noise)["agent_states"].numpy()
+    return place_targets_at_predictions(batch, pred, rng), timesteps, noise
+
+
+def _record_outputs(model: torch.nn.Module, store: Dict[str, List[torch.Tensor]], size: int = 4096):
+    """Forward hooks keeping, per module and call, up to `size` evenly spaced
+    elements of each floating tensor output (in float64 on the CPU)."""
+    def hook(module, args, out, name):
+        if torch.is_tensor(out) and out.is_floating_point():
+            flat = out.detach().reshape(-1)
+            store.setdefault(name, []).append(flat[::max(1, flat.numel() // size)][:size].double().cpu())
+
+    return [m.register_forward_hook(lambda mod, a, o, n=name: hook(mod, a, o, n))
+            for name, m in model.named_modules() if name]
+
+
+def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: Dict[str, np.ndarray],
+                  timesteps: torch.Tensor, noise: torch.Tensor, device: Union[str, torch.device],
+                  dtype: torch.dtype = torch.float32, cudnn: bool = True, record: bool = False) -> dict:
+    """One train step (default `OptimizerConfig`) of a copy of the float32
+    `model` on `device`, dropout off, with the diffusion draws fixed.
+
+    `dtype=torch.float64` runs it with float64 parameters, statistics and
+    compute (the detection cost is rounded to float32 for the assignment,
+    as in every run). `cudnn=False` runs it with cuDNN switched off.
+    Returns the loss terms, every parameter's gradient and the BatchNorm
+    running statistics after the step (float64, on the CPU), the number of
+    LAP launches the step made and, with `record`, a sample of every
+    module's forward output (`_record_outputs`).
+    """
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+    from diffusiondrive_torch.training.train import OptimizerConfig, create_train_state, train_step
+
+    device = torch.device(device)
+    if dtype == torch.float64:
+        m = DiffusionDriveModel(config, dtype=torch.float64)
+        m.load_state_dict(model.state_dict())
+        m = m.to(device, torch.float64)
+    else:
+        m = copy.deepcopy(model).to(device)
+    disable_dropout(m)
+    store: Dict[str, List[torch.Tensor]] = {}
+    handles = _record_outputs(m, store) if record else []
+    state = create_train_state(m, OptimizerConfig())
+    lap0 = batched_linear_sum_assignment.launches
+    cudnn_was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        losses = train_step(state, config, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                            timesteps=timesteps.to(device), noise=noise.to(device))
+    finally:
+        torch.backends.cudnn.enabled = cudnn_was
+        for h in handles:
+            h.remove()
+    return {"losses": {k: v.item() for k, v in losses.items()},
+            "grads": {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
+            "stats": {k: b.detach().double().cpu() for k, b in m.named_buffers() if "running" in k},
+            "lap_launches": batched_linear_sum_assignment.launches - lap0, "outputs": store}
+
+
+def grad_distances(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+                   floor: float = 1e-6) -> Dict[str, float]:
+    """Per parameter, |got - want|_2 / max(|want|_2, floor * the largest
+    |want|_2 of all). The floor keeps gradients that are zero but for
+    rounding (an attention key's bias: softmax ignores a shift shared by all
+    keys) from reading as 100% apart."""
+    top = max(w.norm().item() for w in want.values())
+    return {k: (got[k] - w).norm().item() / max(w.norm().item(), floor * top, 1e-300)
+            for k, w in want.items()}
+
+
+def output_distances(got: Dict[str, List[torch.Tensor]],
+                     want: Dict[str, List[torch.Tensor]]) -> Dict[str, float]:
+    """Per module output recorded by `train_step_on(record=True)`, in the
+    order of the forward: |got - want|_2 / |want|_2, keyed ``name#call``
+    for a module called more than once."""
+    return {(f"{k}#{i}" if len(w) > 1 else k): (g - x).norm().item() / max(x.norm().item(), 1e-300)
+            for k, w in want.items() if k in got for i, (g, x) in enumerate(zip(got[k], w))}

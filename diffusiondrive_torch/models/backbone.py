@@ -4,9 +4,11 @@ Two ResNet branches run stage by stage; after each stage both feature maps
 are pooled to fixed token grids, jointly self-attended by a small GPT,
 projected back, bilinearly upsampled and residually added. The lidar
 branch's final map is the transformer-decoder memory and the FPN input.
-Feature maps are NCHW logical in channels_last memory; eval only (dropout
-is the identity). The GPT attention is plain matmul + softmax, as the JAX
-package's default path is.
+Feature maps are NCHW logical in channels_last memory. In train mode the
+GPT's dropouts are live (`embd_pdrop` on the tokens, `attn_pdrop` on the
+attention probabilities, `resid_pdrop` on the projection and the MLP
+output); in eval mode they are the identity. The GPT attention is plain
+matmul + softmax, as the JAX package's default path is.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusiondrive_torch.models.config import TransfuserConfig
-from diffusiondrive_torch.models.layers import Conv2d, LayerNorm, Linear, softmax_f32
+from diffusiondrive_torch.models.layers import Conv2d, Dropout, LayerNorm, Linear, softmax_f32
 from diffusiondrive_torch.models.resnet import ARCH_SPECS, ResNetStage, ResNetStem
 from diffusiondrive_torch.ops.sampling import adaptive_avg_pool2d, resize_bilinear
 
@@ -27,13 +29,16 @@ from diffusiondrive_torch.ops.sampling import adaptive_avg_pool2d, resize_biline
 class GPTSelfAttention(nn.Module):
     """Fused-token self-attention (query/key/value/proj)."""
 
-    def __init__(self, n_embd: int, n_head: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float, resid_pdrop: float,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
         self.query = Linear(n_embd, n_embd, dtype=dtype)
         self.key = Linear(n_embd, n_embd, dtype=dtype)
         self.value = Linear(n_embd, n_embd, dtype=dtype)
         self.proj = Linear(n_embd, n_embd, dtype=dtype)
+        self.attn_drop = Dropout(attn_pdrop)
+        self.resid_drop = Dropout(resid_pdrop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
@@ -43,25 +48,27 @@ class GPTSelfAttention(nn.Module):
             return t.reshape(B, T, self.n_head, d_head).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        att = softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head))
+        att = self.attn_drop(softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head)))
         y = (att @ v).transpose(1, 2).reshape(B, T, C)
-        return self.proj(y)
+        return self.resid_drop(self.proj(y))
 
 
 class GPTBlock(nn.Module):
     """Pre-LN transformer block with ReLU MLP."""
 
-    def __init__(self, n_embd: int, n_head: int, block_exp: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_embd: int, n_head: int, block_exp: int, attn_pdrop: float,
+                 resid_pdrop: float, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln1 = LayerNorm(n_embd, dtype)
-        self.attn = GPTSelfAttention(n_embd, n_head, dtype)
+        self.attn = GPTSelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop, dtype)
         self.ln2 = LayerNorm(n_embd, dtype)
         self.mlp_fc1 = Linear(n_embd, block_exp * n_embd, dtype=dtype)
         self.mlp_fc2 = Linear(block_exp * n_embd, n_embd, dtype=dtype)
+        self.mlp_drop = Dropout(resid_pdrop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp_fc2(F.relu(self.mlp_fc1(self.ln2(x))))
+        return x + self.mlp_drop(self.mlp_fc2(F.relu(self.mlp_fc1(self.ln2(x)))))
 
 
 class GPTFusion(nn.Module):
@@ -75,8 +82,10 @@ class GPTFusion(nn.Module):
         n_lidar = cfg.lidar_vert_anchors * cfg.lidar_horz_anchors
         self.pos_emb = nn.Parameter(torch.zeros(1, self.n_img + n_lidar, n_embd))
         for i in range(cfg.n_layer):
-            self.add_module(f"block{i}", GPTBlock(n_embd, cfg.n_head, cfg.block_exp, dtype))
+            self.add_module(f"block{i}", GPTBlock(n_embd, cfg.n_head, cfg.block_exp, cfg.attn_pdrop,
+                                                  cfg.resid_pdrop, dtype))
         self.ln_f = LayerNorm(n_embd, dtype)
+        self.embd_drop = Dropout(cfg.embd_pdrop)
 
     def forward(self, image_tokens: torch.Tensor,
                 lidar_tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,7 +94,7 @@ class GPTFusion(nn.Module):
         _, _, lh, lw = lidar_tokens.shape
         tokens = torch.cat([image_tokens.flatten(2).transpose(1, 2),
                             lidar_tokens.flatten(2).transpose(1, 2)], dim=1)
-        x = tokens + self.pos_emb.to(tokens.dtype)
+        x = self.embd_drop(tokens + self.pos_emb.to(tokens.dtype))
         for i in range(self.n_layer):
             x = getattr(self, f"block{i}")(x)
         x = self.ln_f(x)

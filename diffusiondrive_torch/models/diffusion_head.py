@@ -1,10 +1,14 @@
 """Truncated-diffusion trajectory head (counterpart of `diffusiondrive_tpu/models/diffusion_head.py`).
 
-Test path only (`forward_test`): the plan anchors are noised at the
-truncation step t=8, then denoised with 2 DDIM steps (timesteps 10, 0);
-each step runs the full cascade of decoder layers and feeds the predicted
-x/y back through the scheduler. `forward_train` comes with the training
-slice.
+Train (`forward_train`): the plan anchors are noised at a random
+t in [0, 50), clamped in normalised space, denormalised, sine-embedded and
+refined by the cascade of decoder layers with dropout live; every layer
+emits (reg, cls) for the loss, and the points are detached between layers.
+
+Test (`forward_test`): the plan anchors are noised at the truncation step
+t=8, then denoised with 2 DDIM steps (timesteps 10, 0); each step runs the
+full cascade of decoder layers and feeds the predicted x/y back through the
+scheduler.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.layers import (
-    Conv2d, LayerNorm, Linear, LinearReluLn, MultiHeadAttention, mish)
+    Conv2d, Dropout, LayerNorm, Linear, LinearReluLn, MultiHeadAttention, mish)
 from diffusiondrive_torch.ops.ddim import DDIMScheduler
 from diffusiondrive_torch.ops.embed import gen_sineembed_for_position, sinusoidal_pos_emb
 from diffusiondrive_torch.ops.sampling import grid_sample_2d, take_rows
@@ -68,6 +72,7 @@ class GridSampleCrossBEVAttention(nn.Module):
         self.attention_weights = Linear(d, num_points, dtype=dtype)
         self.value_conv = Conv2d(d, 256, 3, padding=1, dtype=dtype)
         self.output_proj = Linear(256, d, dtype=dtype)
+        self.drop = Dropout(0.1)
 
     def forward(self, queries: torch.Tensor, traj_points: torch.Tensor,
                 bev_feature: torch.Tensor) -> torch.Tensor:
@@ -80,7 +85,7 @@ class GridSampleCrossBEVAttention(nn.Module):
         value = F.relu(self.value_conv(bev_feature))
         sampled = grid_sample_2d(value, grid)                                # (B, M, P, 256)
         out = torch.einsum("bmp,bmpc->bmc", attention, sampled)
-        return self.output_proj(out) + queries
+        return self.drop(self.output_proj(out)) + queries
 
 
 class ModulationLayer(nn.Module):
@@ -125,10 +130,11 @@ class DiffusionDecoderLayer(nn.Module):
         cfg = config
         d = cfg.tf_d_model
         self.cross_bev = GridSampleCrossBEVAttention(cfg, cfg.num_poses, dtype)
-        self.cross_agent = MultiHeadAttention(d, cfg.tf_num_head, dtype)
+        self.cross_agent = MultiHeadAttention(d, cfg.tf_num_head, dtype, cfg.tf_dropout)
         self.norm1 = LayerNorm(d, dtype)
-        self.cross_ego = MultiHeadAttention(d, cfg.tf_num_head, dtype)
+        self.cross_ego = MultiHeadAttention(d, cfg.tf_num_head, dtype, cfg.tf_dropout)
         self.norm2 = LayerNorm(d, dtype)
+        self.drop_agent, self.drop_ego = Dropout(0.1), Dropout(0.1)
         self.ffn_fc1 = Linear(d, cfg.tf_d_ffn, dtype=dtype)
         self.ffn_fc2 = Linear(cfg.tf_d_ffn, d, dtype=dtype)
         self.norm3 = LayerNorm(d, dtype)
@@ -138,8 +144,8 @@ class DiffusionDecoderLayer(nn.Module):
     def forward(self, traj_feature, noisy_traj_points, bev_feature, agents_query, ego_query,
                 time_embed) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.cross_bev(traj_feature, noisy_traj_points, bev_feature)
-        x = self.norm1(x + self.cross_agent(x, agents_query, agents_query))
-        x = self.norm2(x + self.cross_ego(x, ego_query, ego_query))
+        x = self.norm1(x + self.drop_agent(self.cross_agent(x, agents_query, agents_query)))
+        x = self.norm2(x + self.drop_ego(self.cross_ego(x, ego_query, ego_query)))
         # the reference replaces (not residually adds) with norm3(ffn(x))
         x = self.norm3(self.ffn_fc2(F.relu(self.ffn_fc1(x))))
         x = self.time_modulation(x, time_embed)
@@ -191,6 +197,42 @@ class DiffusionTrajectoryHead(nn.Module):
             clss.append(poses_cls)
             points = poses_reg[..., :2].detach()
         return regs, clss
+
+    def forward_train(self, ego_query: torch.Tensor, agents_query: torch.Tensor,
+                      bev_feature: torch.Tensor, timesteps: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The training forward: per-layer (reg, cls) stacks for the loss and
+        the best mode's trajectory.
+
+        `timesteps` (B,) ints in [0, diffusion_train_max_t) and `noise`
+        (B, M, P, 2) fix the two draws; otherwise each is drawn from
+        `generator` on the anchors' device (timesteps first, as JAX draws).
+        """
+        cfg = self.config
+        B = ego_query.shape[0]
+        device = self.plan_anchor.device
+        anchors = self.plan_anchor[None].expand(B, -1, -1, -1)
+        normed = norm_odo(anchors)
+        if timesteps is None:
+            timesteps = torch.randint(0, cfg.diffusion_train_max_t, (B,), generator=generator,
+                                      device=device)
+        if noise is None:
+            noise = torch.randn(normed.shape, generator=generator, device=device, dtype=normed.dtype)
+        timesteps = timesteps.to(device)
+        noisy = self.scheduler.add_noise(normed, noise.to(device=device, dtype=normed.dtype), timesteps)
+        noisy_points = denorm_odo(noisy.clamp(-1.0, 1.0))
+
+        traj_feature = self._embed_anchor(noisy_points)
+        time_embed = self._embed_time(timesteps)
+        regs, clss = self._run_cascade(traj_feature, noisy_points, bev_feature, agents_query,
+                                       ego_query, time_embed)
+        mode_idx = clss[-1].argmax(dim=-1)
+        best = take_rows(regs[-1], mode_idx[:, None])[:, 0]
+        return {"trajectory": best,
+                "poses_reg_layers": torch.stack(regs),   # (L, B, M, P, 3)
+                "poses_cls_layers": torch.stack(clss),   # (L, B, M)
+                "plan_anchor": anchors}
 
     def forward_test(self, ego_query: torch.Tensor, agents_query: torch.Tensor,
                      bev_feature: torch.Tensor,

@@ -3,11 +3,16 @@
 dtype policy, as Flax's ``param_dtype=float32, dtype=<compute type>``:
 parameters and BatchNorm statistics stay float32 and are cast to the
 module's compute `dtype` at use; LayerNorm and softmax statistics are taken
-in float32. Module attribute names are the Flax scope names, so a Flax
-variable tree maps onto the `state_dict` mechanically (`utils/port_jax.py`).
+in float32 (in float64 when the compute type is float64: a model built with
+`dtype=torch.float64` and moved to float64 computes every step in float64,
+the reference a float32 run is measured against). Module attribute names are
+the Flax scope names, so a Flax variable tree maps onto the `state_dict`
+mechanically (`utils/port_jax.py`).
 
 Flax's LayerNorm uses eps 1e-6 (torch's default is 1e-5); every LayerNorm
-here takes 1e-6.
+here takes 1e-6. BatchNorm follows Flax in train mode too (biased batch
+variance, momentum 0.9). Dropout is live in train mode only and draws from
+a generator the model sets per step (`set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,11 @@ from diffusiondrive_torch.ops.conv_fused import bn_eval_affine
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
+
+
+def stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type statistics of `x` are taken in: float32, float64 for a float64 `x`."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 class Linear(nn.Linear):
@@ -63,29 +73,88 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.to(stat_dtype(x)), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm (eps 1e-5, Flax momentum 0.9 == torch momentum 0.1) over an
-    NCHW input in `dtype`, with float32 parameters and statistics."""
+    """Flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over an NCHW input in
+    `dtype`, with float32 parameters and statistics.
+
+    Eval mode normalises with the running statistics. Train mode takes the
+    batch mean and the biased variance E[x^2] - E[x]^2 in float32, as Flax's
+    `_compute_stats` does, normalises with them and updates the running
+    statistics as ``0.9 * old + 0.1 * batch``, with the biased variance.
+    torch's own train-mode update uses the unbiased n/(n-1) variance, which
+    after one step differs from Flax's by n/(n-1); it is not used here, and
+    `num_batches_tracked` is not advanced (Flax has no counterpart).
+    """
+
+    MOMENTUM = 0.9  # Flax's convention: the weight of the old statistics
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(features, eps=BN_EPS, momentum=0.1)
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - self.MOMENTUM)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.compute_dtype))
+        x = x.to(self.compute_dtype)
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(stat_dtype(x))
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.compute_dtype)
 
     def eval_affine(self):
         """Exact float32 (scale, bias) of this BatchNorm in eval mode."""
         return bn_eval_affine(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
 
+class Dropout(nn.Module):
+    """Flax `nn.Dropout`: in train mode each element is kept with probability
+    1 - p and scaled by 1 / (1 - p), else zeroed; the identity in eval mode
+    or at p = 0. The keep mask is drawn from `generator` when one is set
+    (`set_dropout_generator`), else from torch's default generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Make every `Dropout` under `module` draw from `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def disable_dropout(module: nn.Module) -> None:
+    """Set the rate of every `Dropout` under `module` to 0 (the identity)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+
+
 def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax with float32 statistics, returned in `x`'s dtype."""
-    return torch.softmax(x, dim=dim, dtype=torch.float32).to(x.dtype)
+    return torch.softmax(x, dim=dim, dtype=stat_dtype(x)).to(x.dtype)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -94,15 +163,18 @@ def mish(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with separate q/k/v/out projections; dropout is eval-only (none)."""
+    """MHA with separate q/k/v/out projections and dropout `dropout` on the
+    attention probabilities."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.q_proj = Linear(d_model, d_model, dtype=dtype)
         self.k_proj = Linear(d_model, d_model, dtype=dtype)
         self.v_proj = Linear(d_model, d_model, dtype=dtype)
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
+        self.attn_drop = Dropout(dropout)
 
     def forward(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
         B, Tq, C = q_in.shape
@@ -112,40 +184,46 @@ class MultiHeadAttention(nn.Module):
             return x.reshape(B, x.shape[1], self.num_heads, d_head).transpose(1, 2)
 
         q, k, v = split(self.q_proj(q_in)), split(self.k_proj(k_in)), split(self.v_proj(v_in))
-        att = softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head))
+        att = self.attn_drop(softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head)))
         y = (att @ v).transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(y)
 
 
 class TransformerDecoderLayer(nn.Module):
-    """torch `nn.TransformerDecoderLayer` semantics: post-LN, ReLU FFN."""
+    """torch `nn.TransformerDecoderLayer` semantics: post-LN, ReLU FFN, with
+    dropout `dropout` in the attentions, on both attention outputs, after the
+    FFN's ReLU and on its output."""
 
     def __init__(self, d_model: int, num_heads: int, d_ffn: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, dropout)
         self.norm1 = LayerNorm(d_model, dtype)
-        self.cross_attn = MultiHeadAttention(d_model, num_heads, dtype)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dtype, dropout)
         self.norm2 = LayerNorm(d_model, dtype)
         self.linear1 = Linear(d_model, d_ffn, dtype=dtype)
         self.linear2 = Linear(d_ffn, d_model, dtype=dtype)
         self.norm3 = LayerNorm(d_model, dtype)
+        self.drop_sa, self.drop_ca = Dropout(dropout), Dropout(dropout)
+        self.drop_ffn, self.drop_out = Dropout(dropout), Dropout(dropout)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(tgt + self.self_attn(tgt, tgt, tgt))
-        x = self.norm2(x + self.cross_attn(x, memory, memory))
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+        x = self.norm1(tgt + self.drop_sa(self.self_attn(tgt, tgt, tgt)))
+        x = self.norm2(x + self.drop_ca(self.cross_attn(x, memory, memory)))
+        h = self.linear2(self.drop_ffn(F.relu(self.linear1(x))))
+        return self.norm3(x + self.drop_out(h))
 
 
 class TransformerDecoder(nn.Module):
     """Stack of `TransformerDecoderLayer`s named layer0..layerN-1 (no final norm)."""
 
     def __init__(self, d_model: int, num_heads: int, d_ffn: int, num_layers: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            self.add_module(f"layer{i}", TransformerDecoderLayer(d_model, num_heads, d_ffn, dtype))
+            self.add_module(f"layer{i}", TransformerDecoderLayer(d_model, num_heads, d_ffn, dtype,
+                                                                 dropout))
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         x = tgt

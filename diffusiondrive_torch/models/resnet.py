@@ -11,8 +11,11 @@ on the input: those run their plain versions for CPU tensors, launch the
 CUDA kernels for CUDA tensors, and raise for a CUDA tensor the kernel does
 not take. Their operands (the HWIO weight in the compute dtype and the
 exact float32 BN affine) are made once per dtype and device. Train mode
-takes the module path (conv, BatchNorm with batch statistics, ReLU, pool).
-BN eps is 1e-5.
+takes the module path on every device: `F.conv2d` (cuDNN on the card),
+BatchNorm with batch statistics (`layers.BatchNorm2d`), ReLU, pool. The
+fused kernels stay eval-only, as under the JAX package's default
+`fused_mode="auto"`, whose train step runs XLA's convolutions. BN eps is
+1e-5.
 """
 
 from __future__ import annotations

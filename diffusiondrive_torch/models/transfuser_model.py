@@ -1,4 +1,4 @@
-"""DiffusionDrive model, eval path (counterpart of `diffusiondrive_tpu/models/transfuser_model.py`).
+"""DiffusionDrive model (counterpart of `diffusiondrive_tpu/models/transfuser_model.py`).
 
 Pipeline: backbone(camera, lidar) -> 8x8x512 BEV memory + 64x64x64 FPN BEV
 -> 64 BEV tokens + 1 status token (+ learned keyval embedding) -> 3-layer
@@ -9,6 +9,11 @@ Public tensors keep the JAX layout: NHWC camera (B, 256, 1024, 3) uint8 or
 float, NHWC lidar (B, 256, 256, C), status (B, 8); `bev_semantic_map` comes
 back NHWC (B, 128, 256, 7). Inside, maps are NCHW in channels_last memory,
 so the permutes at the edges move no bytes.
+
+`model.train()` selects the training forward (batch-statistics BatchNorm
+on cuDNN convolutions, dropout live, the diffusion head's `forward_train`);
+`model.eval()` the planner forward (the fused stem and layer-1 kernels, the
+truncated DDIM rollout).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from diffusiondrive_torch.common.enums import BoundingBox2DIndex
 from diffusiondrive_torch.models.backbone import TransfuserBackbone
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.diffusion_head import DiffusionTrajectoryHead
-from diffusiondrive_torch.models.layers import Conv2d, Linear, LinearReluLn, TransformerDecoder
+from diffusiondrive_torch.models.layers import (
+    Conv2d, Linear, LinearReluLn, TransformerDecoder, set_dropout_generator)
 from diffusiondrive_torch.ops.sampling import resize_bilinear
 
 
@@ -48,7 +54,7 @@ class AgentHead(nn.Module):
 
 
 class DiffusionDriveModel(nn.Module):
-    """V2 Transfuser with the truncated-diffusion trajectory head (eval only).
+    """V2 Transfuser with the truncated-diffusion trajectory head.
 
     `dtype` is the compute type (Flax's `dtype`); parameters and BatchNorm
     statistics stay float32.
@@ -66,7 +72,8 @@ class DiffusionDriveModel(nn.Module):
         self.keyval_embedding = nn.Parameter(torch.zeros(bev_tokens + 1, d))
         self.bev_proj = LinearReluLn(d + cfg.bev_features_channels, d, 1, 1, dtype)
         self.query_embedding = nn.Parameter(torch.zeros(1 + cfg.num_bounding_boxes, d))
-        self.tf_decoder = TransformerDecoder(d, cfg.tf_num_head, cfg.tf_d_ffn, cfg.tf_num_layers, dtype)
+        self.tf_decoder = TransformerDecoder(d, cfg.tf_num_head, cfg.tf_d_ffn, cfg.tf_num_layers, dtype,
+                                             cfg.tf_dropout)
         self.bev_semantic_conv1 = Conv2d(cfg.bev_features_channels, cfg.bev_features_channels, 3,
                                          padding=1, dtype=dtype)
         self.bev_semantic_conv2 = Conv2d(cfg.bev_features_channels, cfg.num_bev_classes, 1, dtype=dtype)
@@ -74,16 +81,21 @@ class DiffusionDriveModel(nn.Module):
         self.agent_head = AgentHead(cfg, dtype)
 
     def forward(self, camera_feature: torch.Tensor, lidar_feature: torch.Tensor,
-                status_feature: torch.Tensor, diffusion_noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                status_feature: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None,
+                diffusion_noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                timesteps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """camera (B, H, W, 3) uint8 or float, lidar (B, h, w, C), status (B, 8).
 
         `diffusion_noise` (B, modes, poses, 2) fixes the trajectory head's
-        noise; otherwise it is drawn from `generator`.
+        noise and, in train mode, `timesteps` (B,) its noising steps;
+        otherwise they are drawn from `generator`, which in train mode also
+        feeds every dropout. `targets` is taken in train mode as the JAX
+        model takes it; the diffusion head does not read it.
         """
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet; call .eval()")
         cfg = self.config
+        if self.training:
+            set_dropout_generator(self, generator)
         # uint8 cameras are normalized on the device: the host copy moves 1 B/px
         if camera_feature.dtype == torch.uint8:
             camera_feature = camera_feature.float() / 255.0
@@ -113,7 +125,12 @@ class DiffusionDriveModel(nn.Module):
         bev_semantic_map = resize_bilinear(sem, cfg.bev_semantic_frame).permute(0, 2, 3, 1)
 
         output: Dict[str, torch.Tensor] = {"bev_semantic_map": bev_semantic_map}
-        output.update(self.trajectory_head.forward_test(
-            ego_query, agents_query, cross_bev, noise=diffusion_noise, generator=generator))
+        if self.training:
+            output.update(self.trajectory_head.forward_train(
+                ego_query, agents_query, cross_bev, timesteps=timesteps, noise=diffusion_noise,
+                generator=generator))
+        else:
+            output.update(self.trajectory_head.forward_test(
+                ego_query, agents_query, cross_bev, noise=diffusion_noise, generator=generator))
         output.update(self.agent_head(agents_query))
         return output

@@ -19,10 +19,12 @@ def grid_sample_2d(value: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
     :param value: (N, C, H, W) feature map
     :param grid: (N, Hg, Wg, 2) locations in [-1, 1], last dim (x=width, y=height)
-    :return: (N, Hg, Wg, C) in `value`'s dtype; sampled in float32 so that
-        bf16 coordinates do not shift the sample points
+    :return: (N, Hg, Wg, C) in `value`'s dtype; sampled in float32 (float64
+        for float64 values) so that bf16 coordinates do not shift the
+        sample points
     """
-    out = F.grid_sample(value.float(), grid.float(), mode="bilinear",
+    d = torch.float64 if value.dtype == torch.float64 else torch.float32
+    out = F.grid_sample(value.to(d), grid.to(d), mode="bilinear",
                         padding_mode="zeros", align_corners=False)
     return out.permute(0, 2, 3, 1).to(value.dtype)
 

@@ -1,4 +1,4 @@
-"""Planner- or agent-forward profile on the card: where one forward's time goes.
+"""Planner-forward, agent-forward or train-step profile on the card: where the time goes.
 
 Builds the full-width bf16 planner (`entry.py`, seeded random weights) or,
 with `--agent`, the raw-sensor agent (`entry.agent_entry`: the camera stitch
@@ -10,16 +10,23 @@ host-to-device copies per forward; for each model component (module paths
 up to depth `DEPTH`, inclusive of their children) its device busy ms, kernel
 launches and host ms per forward; and the `TOP` kernels by device time.
 The range hooks and the profiler add host time, so the wall time here is
-above an unprofiled forward's. Needs a CUDA device; there is no CPU fallback.
+above an unprofiled forward's. With `--train` it profiles the bf16 training
+step instead (`training/train.py:train_step` on a seeded batch already on
+the card, AdamW at the default config): one "forward" is one step, and the
+components are the step's own ranges "forward", "loss", "lap" (inside
+"loss"), "backward" and "optimizer". Needs a CUDA device; there is no CPU
+fallback.
 
 Example (one GPU):
     python -m diffusiondrive_torch.script.run_profile --batch 16 --trace trace.json
     python -m diffusiondrive_torch.script.run_profile --batch 16 --agent
+    python -m diffusiondrive_torch.script.run_profile --batch 64 --train
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import defaultdict
@@ -77,6 +84,44 @@ def _agent_forward(batch: int):
     return (lambda: agent.predict(tensors)), agent.model, extra
 
 
+def _train_step(batch: int):
+    """(step, model, component names) for the bf16 training step."""
+    from diffusiondrive_torch.device import resolve_device
+    from diffusiondrive_torch.entry import build_model, example_training_sample
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.training.dataset import collate
+    from diffusiondrive_torch.training.train import OptimizerConfig, create_train_state, train_step
+
+    cfg, dev = TransfuserConfig(), resolve_device(None)
+    model = build_model(cfg, torch.bfloat16, seed=0).to(dev)
+    state = create_train_state(model, OptimizerConfig())
+    rng = np.random.default_rng(0)
+    samples = collate([example_training_sample(cfg, rng) for _ in range(batch)])
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in samples.items()}
+    gen = torch.Generator(device=dev)
+    return (lambda: train_step(state, cfg, tensors, gen.manual_seed(0))), model, \
+        ["forward", "loss", "lap", "backward", "optimizer"]
+
+
+def _by_launch(events, names, n: int, out) -> None:
+    """Device ms and launches per step of each component, by launch time: a
+    kernel counts for every component whose host range was open when the op
+    that launched it started, on any thread (the backward's ops run on
+    autograd's own thread, outside the range's device-side span)."""
+    windows = defaultdict(list)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in names:
+            windows[e.name].append((e.time_range.start, e.time_range.end))
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name in names or not e.kernels:
+            continue
+        t = e.time_range.start
+        for name, spans in windows.items():
+            if any(s <= t < end for s, end in spans):
+                out[name][0] += sum(k.duration for k in e.kernels) / 1e3 / n
+                out[name][1] += len(e.kernels) / n
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -96,21 +141,26 @@ def main() -> None:
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
     parser.add_argument("--agent", action="store_true",
                         help="profile the raw-sensor agent path, not the planner alone")
+    parser.add_argument("--train", action="store_true",
+                        help="profile the training step (forward, loss, LAP, backward, optimizer)")
     args = parser.parse_args()
 
     from diffusiondrive_torch.entry import entry
 
     if not torch.cuda.is_available():
         raise SystemExit("run_profile: no CUDA device")
-    if args.agent:
+    if args.train:
+        forward, model, components = _train_step(args.batch)
+    elif args.agent:
         forward, model, extra = _agent_forward(args.batch)
     else:
         model, inputs = entry(dtype=torch.bfloat16, batch=args.batch)
         gen = torch.Generator(device=inputs["status_feature"].device)
         forward, extra = (lambda: model(**inputs, generator=gen.manual_seed(0))), []
-    components = _annotate(model, DEPTH) + extra
+    if not args.train:
+        components = _annotate(model, DEPTH) + extra
     n = FORWARDS
-    with torch.no_grad():
+    with contextlib.nullcontext() if args.train else torch.no_grad():
         for _ in range(3):
             forward()
         torch.cuda.synchronize()
@@ -127,7 +177,7 @@ def main() -> None:
     names = set(components)
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     # the component ranges show on the device timeline too: they are no kernels
-    kernels = [e for e in on_device if e.name not in names
+    kernels = [e for e in on_device if e.name not in names and not getattr(e, "is_user_annotation", False)
                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
     htod = [e for e in on_device if "htod" in e.name.lower()]
     spans = lambda evs: [(e.time_range.start, e.time_range.end) for e in evs]  # noqa: E731
@@ -136,19 +186,28 @@ def main() -> None:
     for e in kernels:
         by_kernel[e.name][0] += e.time_range.elapsed_us()
         by_kernel[e.name][1] += 1
-    # a component's device time: the kernels inside its range on the device timeline
     by_component = defaultdict(lambda: [0.0, 0, 0.0])
-    for e in on_device:
-        if e.name in names:
-            inside = [k for k in kernels if e.time_range.start <= k.time_range.start < e.time_range.end]
-            by_component[e.name][0] += _busy_us(spans(inside)) / 1e3 / n
-            by_component[e.name][1] += len(inside) / n
+    if args.train:
+        _by_launch(events, names, n, by_component)
+        # the LAP kernel is launched through ctypes, outside PyTorch's op
+        # records, so no op links to it: find it by its name
+        lap = [k for k in kernels if "lap_kernel" in k.name]
+        for name in ("lap", "loss"):
+            by_component[name][0] += sum(k.time_range.elapsed_us() for k in lap) / 1e3 / n
+            by_component[name][1] += len(lap) / n
+    else:
+        # a component's device time: the kernels inside its range on the device timeline
+        for e in on_device:
+            if e.name in names:
+                inside = [k for k in kernels if e.time_range.start <= k.time_range.start < e.time_range.end]
+                by_component[e.name][0] += _busy_us(spans(inside)) / 1e3 / n
+                by_component[e.name][1] += len(inside) / n
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in names:
             by_component[e.name][2] += e.time_range.elapsed_us() / 1e3 / n
 
     print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": "bfloat16", "batch": args.batch,
-                      "path": "agent" if args.agent else "planner",
+                      "path": "train" if args.train else "agent" if args.agent else "planner",
                       "forwards": n, "wall_ms_per_forward": wall_ms,
                       "device_busy_ms_per_forward": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,

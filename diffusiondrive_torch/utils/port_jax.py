@@ -15,6 +15,11 @@ The port's modules carry the Flax scope names, so a Flax variable tree
 The walk is strict: every Flax leaf must land on a port tensor of the same
 shape and every port tensor must be filled, or it raises. BatchNorm's
 ``num_batches_tracked`` counter has no Flax counterpart and is set to 0.
+
+`jax_params_to_named` applies the same walk to any tree in the ``params``
+layout (gradients, Adam moments, EMA weights) and returns it under the
+port's parameter names, so the two packages' gradients compare parameter by
+parameter.
 """
 
 from __future__ import annotations
@@ -78,6 +83,25 @@ def jax_to_state_dict(variables: Mapping[str, Mapping], model: nn.Module) -> Dic
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"{len(missing)} port tensors have no Flax leaf, e.g. {missing[:5]}")
+    return out
+
+
+def jax_params_to_named(params: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A tree in the Flax ``params`` layout -> {port parameter name: tensor},
+    laid out as the port's parameters; strict both ways."""
+    target = dict(model.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        key, tensor = _convert("params", path, leaf)
+        if key not in target:
+            raise KeyError(f"Flax leaf params/{'/'.join(path)} has no port parameter {key!r}")
+        if tuple(tensor.shape) != tuple(target[key].shape):
+            raise ValueError(f"{key}: Flax shape {tuple(tensor.shape)} != port shape "
+                             f"{tuple(target[key].shape)}")
+        out[key] = tensor
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"{len(missing)} port parameters have no Flax leaf, e.g. {missing[:5]}")
     return out
 
 

@@ -5,11 +5,13 @@ it runs on a machine without JAX; run it there with
 ``python -m pytest tests/test_torch_port_cuda.py -m cuda -q --noconftest -o addopts=""``.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from diffusiondrive_torch.models.resnet import ResNetStem
 from diffusiondrive_torch.ops.conv_fused import conv3x3_plain, fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
 from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
 
@@ -73,3 +75,80 @@ def test_cuda_histogram_matches_plain_version_exactly(cuda_device, B, N, bins):
         assert got.shape == (B, bins, bins) and torch.equal(got, want)
     with pytest.raises(TypeError, match="int32"):
         histogram2d(ix.long(), iy.long(), bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(1, 3), (7, 5), (30, 64), (31, 9)])
+def test_cuda_assignment_equals_plain_version_and_scipy(cuda_device, n, B):
+    """The LAP kernel gives the plain version's assignment exactly (ties
+    included: the second half of the batch has integer costs in [0, 4)) and
+    scipy's optimal total cost."""
+    from scipy.optimize import linear_sum_assignment
+
+    rng = np.random.default_rng(n)
+    costs = rng.normal(size=(B, n, n)).astype(np.float32)
+    costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, n, n))
+    c = torch.from_numpy(costs).to(cuda_device)
+    before = batched_linear_sum_assignment.launches
+    got = batched_linear_sum_assignment(c)
+    torch.cuda.synchronize()
+    assert batched_linear_sum_assignment.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (B, n)
+    torch.testing.assert_close(got, linear_sum_assignment_plain(c), rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), linear_sum_assignment_plain(c.cpu()), rtol=0, atol=0)
+    for cb, col in zip(costs, got.cpu().numpy()):
+        r, cs = linear_sum_assignment(cb)
+        np.testing.assert_allclose(cb[np.arange(n), col].sum(dtype=np.float64),
+                                   cb[r, cs].sum(dtype=np.float64), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="outside the kernel"):
+        batched_linear_sum_assignment(torch.zeros(2, 32, 32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_add_noise_takes_per_sample_timesteps(cuda_device):
+    from diffusiondrive_torch.ops.ddim import DDIMScheduler
+
+    g = torch.Generator().manual_seed(0)
+    x, eps = torch.randn(4, 20, 8, 2, generator=g), torch.randn(4, 20, 8, 2, generator=g)
+    t = torch.tensor([0, 49, 7, 31])
+    sched = DDIMScheduler()
+    want = sched.add_noise(x, eps, t)
+    got = sched.add_noise(x.to(cuda_device), eps.to(cuda_device), t.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One train step at a small config on the card (the LAP kernel, cuDNN
+    convolutions) against the same step on the CPU, with a float64 step on
+    each as the witness, held as `chip_smoke.py` holds the full-width step:
+    loss terms within 1e-3 x max(1, |CPU|); per parameter, the card's
+    float64 gradient within 1e-6 relative L2 of the CPU's, and its float32
+    gradient within min(1e-2 + 2x the CPU float32 gradient's distance, 0.1)
+    of the CPU's float64 one (float32 gradients of a train-mode BatchNorm
+    network carry its cancellation: PERF.md, PR 3); BN statistics within
+    1e-4."""
+    from diffusiondrive_torch.entry import build_model, comparison_batch, grad_distances, train_step_on
+    from diffusiondrive_torch.models.config import TransfuserConfig
+
+    cfg = TransfuserConfig(image_architecture="resnet18", lidar_architecture="resnet18",
+                           camera_height=64, camera_width=256, lidar_resolution_height=64,
+                           lidar_resolution_width=64, img_vert_anchors=2, img_horz_anchors=8,
+                           lidar_vert_anchors=2, lidar_horz_anchors=2, bev_pixel_height=32,
+                           bev_pixel_width=64)
+    model = build_model(cfg, seed=0).train()
+    batch, ts, noise = comparison_batch(model, cfg, 2, seed=0)
+    runs = {(d.type, dt): train_step_on(model, cfg, batch, ts, noise, d, dt)
+            for d in (torch.device("cpu"), cuda_device) for dt in (torch.float32, torch.float64)}
+    f32, f64 = torch.float32, torch.float64
+    assert runs[("cuda", f32)]["lap_launches"] == 1 and runs[("cuda", f64)]["lap_launches"] == 1
+    for k, v in runs[("cpu", f32)]["losses"].items():
+        assert abs(runs[("cuda", f32)]["losses"][k] - v) <= 1e-3 * max(1.0, abs(v)), k
+    ref = runs[("cpu", f64)]["grads"]
+    card64 = grad_distances(runs[("cuda", f64)]["grads"], ref)
+    assert max(card64.values()) <= 1e-6, max(card64.items(), key=lambda kv: kv[1])
+    cpu32 = grad_distances(runs[("cpu", f32)]["grads"], ref)
+    for k, dist in grad_distances(runs[("cuda", f32)]["grads"], ref).items():
+        assert dist <= min(1e-2 + 2.0 * cpu32[k], 0.1), (k, dist, cpu32[k])
+    for k, b in runs[("cpu", f32)]["stats"].items():
+        torch.testing.assert_close(runs[("cuda", f32)]["stats"][k], b, rtol=1e-4, atol=1e-4, msg=k)

@@ -1,0 +1,69 @@
+"""Port parity of the plain linear assignment (kernel B4's plain version),
+on the CPU, against the JAX package's solver, its Pallas kernel in interpret
+mode and scipy; and the wrapper's dispatch.
+
+Both versions do the same float32 subtractions and comparisons in the same
+order and take the first index on ties, so the assignments must be equal
+exactly, ties included; the total cost must equal scipy's optimum.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+from diffusiondrive_tpu.ops import hungarian as jhung
+
+from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
+
+
+def _costs(kind, B_, n, rng):
+    if kind == "normal":
+        return rng.normal(size=(B_, n, n)).astype(np.float32)
+    if kind == "ties":  # integer costs: many equal optima, the tie-break decides
+        return rng.integers(0, 4, size=(B_, n, n)).astype(np.float32)
+    if kind == "ones":
+        return np.ones((B_, n, n), np.float32)
+    if kind == "huge":  # large finite costs must not collide with the 1e18 sentinel
+        return (rng.uniform(size=(B_, n, n)) * 1e9).astype(np.float32)
+    # "mixed": tiny diagonal in a sea of huge costs
+    c = np.full((B_, n, n), 1e8, np.float32)
+    c[:, np.arange(n), np.arange(n)] = 1e-6
+    return c
+
+
+@pytest.mark.parametrize("n,B_", [(1, 3), (2, 5), (7, 16), (30, 16), (31, 4)])
+@pytest.mark.parametrize("kind", ["normal", "ties", "ones", "huge", "mixed"])
+def test_plain_assignment_equals_jax_and_pallas_interpret(n, B_, kind):
+    """Equal assignments, exactly, to JAX's solver and its Pallas kernel in
+    interpret mode; optimal total cost against scipy."""
+    costs = _costs(kind, B_, n, np.random.default_rng(n * 100 + B_))
+    got = linear_sum_assignment_plain(torch.from_numpy(costs)).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(jhung.linear_sum_assignment)(jnp.asarray(costs))))
+    np.testing.assert_array_equal(got, np.asarray(jhung._lsa_pallas(jnp.asarray(costs), interpret=True)))
+    for c, col in zip(costs, got):
+        assert sorted(col.tolist()) == list(range(n))
+        r, cs = scipy_lsa(c)
+        np.testing.assert_allclose(c[np.arange(n), col].sum(dtype=np.float64),
+                                   c[r, cs].sum(dtype=np.float64), rtol=1e-5, atol=1e-5)
+
+
+def test_assignment_wrapper_takes_the_plain_version_on_cpu_and_launches_nothing():
+    costs = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 30, 30)).astype(np.float32))
+    before = batched_linear_sum_assignment.launches
+    torch.testing.assert_close(batched_linear_sum_assignment(costs), linear_sum_assignment_plain(costs),
+                               rtol=0, atol=0)
+    assert batched_linear_sum_assignment.launches == before
+
+
+def test_assignment_off_the_cpu_reaches_the_kernel_or_raises():
+    """A meta tensor is no CPU tensor: it must not take the plain version."""
+    with pytest.raises(RuntimeError, match="no kernel"):
+        batched_linear_sum_assignment(torch.empty(2, 30, 30, device="meta"))
+    with pytest.raises(ValueError, match="outside the kernel"):
+        batched_linear_sum_assignment(torch.empty(2, 32, 32, device="meta"))
+    with pytest.raises(TypeError, match="float32"):
+        batched_linear_sum_assignment(torch.empty(2, 30, 30, device="meta", dtype=torch.float64))
