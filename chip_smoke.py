@@ -14,13 +14,24 @@ line per phase, then one JSON line per kernel summary, then the result:
                and the tolerance; the lidar splat must be exact), timed with
                CUDA events beside the plain version, a library yardstick
                (`library_ms`, never used by the port) and the card's bound
-               for the same work (`bound_ms`).
+               for the same work (`bound_ms`). ``kernel attention_fwd`` /
+               ``attention_bwd`` (the fused attention at the fusion blocks'
+               B=64, H=4, T=320 and each stage's D = 16, 32, 64, 128, bf16
+               and f32, without and with a p=0.1 keep mask; library:
+               `scaled_dot_product_attention` unmasked) and ``kernel
+               conv3x3_train`` (its forward and input gradient at the B=64
+               layer-1 shapes in bf16, and one autograd backward against the
+               plain version's; library: cuDNN `conv2d` and `conv2d_input`).
 4. ``main_path`` the full-width planner forward (default TransfuserConfig,
                seeded random weights): (a) float32 at B=1 on the card against
                the same model on the CPU; (b) bf16 at B=1 and B=16, finite
                outputs and frames/s. The kernel launch counters are set to 0
                before this phase and must read 2 stem and 12 conv3x3 launches
-               per forward after it.
+               per forward, and no attention launch, after it. (c) ``fused``:
+               one float32 forward with both kernel switches on
+               (`fused_conv_mode="train"`, `fused_attention_mode="on"`),
+               against the CPU forward of (a) within the same gate, counted on
+               its own: exactly 2 stem, 12 conv3x3 and 8 attention launches.
 5. ``agent_path`` the raw-sensor agent (`DiffusionDriveAgent(
                preprocess_on_device=True)`, full width): (a) float32 at B=1 on
                the card against the same agent on the CPU (stitched camera,
@@ -29,7 +40,7 @@ line per phase, then one JSON line per kernel summary, then the result:
                already on the card and with the host-to-device copy, the copy's
                ms on its own line, peak memory. The counters are set to 0
                before this phase and must read 1 splat, 2 stem and 12 conv3x3
-               launches per agent forward after it.
+               launches per agent forward (no attention launch) after it.
 6. ``kernel lap b8`` / ``b64`` the batched Hungarian kernel at n=30 (float32
                costs from a seed, half of each batch integer costs in [0, 4)
                for ties): its assignment equals the plain version's on the
@@ -48,7 +59,12 @@ line per phase, then one JSON line per kernel summary, then the result:
                read exactly 1 LAP launch per train step and per validation
                forward, no stem or conv3x3 launch in a train epoch, and
                2 stem + 12 conv3x3 per validation forward; the path's count
-               is their sum over both fits.
+               is their sum over both fits. ``fused``: the same fits on the
+               same cache with both kernel switches on (dropout live): per
+               train step exactly 8 attention forwards, 8 attention
+               backwards and 24 conv3x3 launches (12 forwards, 12 input
+               gradients), per validation forward 2 stem, 12 conv3x3, 8
+               attention and 1 LAP.
                (b) ``f32``: one float32 train step at B=2 on the card
                against the same step on the CPU, with a float64 step on
                each as the witness (same seeded weights and inputs, dropout
@@ -61,6 +77,11 @@ line per phase, then one JSON line per kernel summary, then the result:
                in `phase_train_f32`); the BN running statistics within
                1e-4 x max(1, |CPU|). Logs where the float32 steps leave the
                float64 one, by module (forward) and by part (gradients).
+               ``controls``: first, two plain float32 steps with 1e-6
+               relative noise at the modules the switches replace must pass
+               the same gradient gate (the comparison point is smooth).
+               ``fused``: the float32 step with both switches on (8 + 8
+               attention and 24 conv3x3 launches), under the same gates.
 8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
@@ -90,9 +111,42 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # bf16 before the affine, the kernel keeps it in f32 (one bf16 ulp apart).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 MAIN_TOL = 1e-3            # card f32 forward vs CPU f32 forward
+COMPARISON_SEEDS = (5, 10)  # `comparison_batch` seeds of the float32 step gates (at each, some float32 step
+                            # takes another side of a ReLU than float64: PERF.md)
+KINK_TOL = 1e-3             # float32 ReLU and max-pool inputs vs float64's, over max |float64|
+
+
+def _fused_config():
+    from diffusiondrive_torch.models.config import TransfuserConfig
+
+    return TransfuserConfig(fused_conv_mode="train", fused_attention_mode="on")
+
+
+def _launch_counters() -> dict:
+    """The kernel wrappers a train step can reach, by short name; each counts
+    its launches in `launches`."""
+    from diffusiondrive_torch.ops.attention_fused import fused_attention, fused_attention_bwd
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+    from diffusiondrive_torch.ops.stem_fused import fused_stem
+
+    return {"lap": batched_linear_sum_assignment, "stem": fused_stem, "conv3x3": fused_conv3x3,
+            "attention_fwd": fused_attention, "attention_bwd": fused_attention_bwd}
+
+
+# kernel launches per train step and per validation forward, default and switched
+STEP_LAUNCHES = {False: {"lap": 1, "stem": 0, "conv3x3": 0, "attention_fwd": 0, "attention_bwd": 0},
+                 True: {"lap": 1, "stem": 0, "conv3x3": 24, "attention_fwd": 8, "attention_bwd": 8}}
+VAL_LAUNCHES = {False: {"lap": 1, "stem": 2, "conv3x3": 12, "attention_fwd": 0, "attention_bwd": 0},
+                True: {"lap": 1, "stem": 2, "conv3x3": 12, "attention_fwd": 8, "attention_bwd": 0}}
+
+
+_T0 = time.perf_counter()
 
 
 def log(phase: str, **fields) -> None:
+    """One phase line; `elapsed_s` is the script's wall time when it is printed."""
+    fields["elapsed_s"] = round(time.perf_counter() - _T0, 2)
     print(phase + ": " + json.dumps(fields), flush=True)
 
 
@@ -119,6 +173,19 @@ def bound_ms(flops: float, nbytes: float, dtype: torch.dtype):
 def nhwc_randn(shape, gen, device, dtype):
     """(B, H, W, C) normal draw -> NCHW view in channels_last memory."""
     return torch.randn(shape, generator=gen).to(device, dtype).permute(0, 3, 1, 2)
+
+
+def check_bf16_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bf16 attention rows' second limit, 2 bf16 ulps (2 * 2^-8) of max
+    |want|: both versions round p and the score gradient to bf16 at the same
+    places, so a last-bit float32 difference before a rounding flips it by
+    one ulp and the result's own rounding by one more (as the CPU test
+    against JAX). Returns the limit; raises past it."""
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 2.0 * 2.0 ** -8 * want.float().abs().max().item()
+    if not err <= limit:
+        raise AssertionError(f"{name}: max abs err {err} > 2 bf16 ulps of max |plain| {limit}")
+    return limit
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -274,6 +341,123 @@ def phase_lidar_splat(dev) -> dict:
     return summary
 
 
+ATTN_BHT = (64, 4, 320)        # batch, heads, tokens of the fusion blocks at the CLI's batch
+ATTN_D = (16, 32, 64, 128)     # head widths of fusion stages 1-4 (C / 4 for C = 64..512)
+CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # layer 1 at B=64, NHWC
+
+
+def phase_attention(dev) -> dict:
+    """The fused attention kernels (forward, backward) at the fusion blocks'
+    shapes (B=64, H=4, T=320, every stage's D) in bf16 and f32, without and
+    with a p=0.1 keep mask, against their plain versions on the same inputs
+    (bf16 also within 2 bf16 ulps of max |plain|, `check_bf16_ulps`):
+    q, k, v and dO as (B, H, T, D) views of (B, T, H, D) memory, as the
+    model hands them over. library_ms: `F.scaled_dot_product_attention`
+    unmasked (forward; forward and backward through autograd), never called
+    by the port. Bound: the forward's 4·B·H·T²·D flops and its q, k, v, o
+    (and mask) bytes; the backward's 10·B·H·T²·D flops (the five products
+    of a recomputing backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
+    from diffusiondrive_torch.ops.attention_fused import (
+        attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, fused_attention, fused_attention_bwd)
+
+    B, H, T = ATTN_BHT
+    gen, mask_gen = torch.Generator().manual_seed(4), torch.Generator(device=dev)
+    summary = {}
+    for D in ATTN_D:
+        base = [torch.randn(B, T, H, D, generator=gen) for _ in range(4)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (t.to(dev, dtype).transpose(1, 2) for t in base)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            esize = q.element_size()
+            for pdrop in (0.0, 0.1):
+                mask = dropout_keep_mask(mask_gen.manual_seed(D), (B, H, T, T), pdrop, dev) if pdrop else None
+                variant = "masked" if pdrop else "no_mask"
+                mbytes = B * H * T * T if pdrop else 0
+                tag = f"D={D} {variant} {dtype}"
+                got, want = fused_attention(q, k, v, mask, pdrop), attention_fwd_plain(q, k, v, mask, pdrop)
+                torch.cuda.synchronize()
+                err, limit = check_close(f"attention_fwd {tag}", got, want, TOL[dtype])
+                ulps = check_bf16_ulps(f"attention_fwd {tag}", got, want) if dtype == torch.bfloat16 else None
+                bms, by = bound_ms(4.0 * B * H * T * T * D, esize * 4.0 * B * H * T * D + mbytes, dtype)
+                row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant, max_abs_err=err, limit=limit,
+                           ulp_limit=ulps,
+                           kernel_ms=time_ms(lambda: fused_attention(q, k, v, mask, pdrop), iters=10),
+                           plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, mask, pdrop), iters=10),
+                           library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
+                           bound_ms=bms, bound_by=by)
+                log(f"kernel attention_fwd d{D} {variant}", **row)
+                summary[("attention_fwd", D, variant, dtype)] = row
+
+                got = fused_attention_bwd(q, k, v, mask, do, pdrop)
+                want = attention_bwd_plain(q, k, v, mask, do, pdrop)
+                torch.cuda.synchronize()
+                errs = {name: check_close(f"attention_bwd {name} {tag}", g, w, TOL[dtype])
+                        for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+                ulps = {name: check_bf16_ulps(f"attention_bwd {name} {tag}", g, w)
+                        for name, g, w in zip(("dq", "dk", "dv"), got, want)} if dtype == torch.bfloat16 else None
+                del got, want
+                bms, by = bound_ms(10.0 * B * H * T * T * D, esize * 7.0 * B * H * T * D + mbytes, dtype)
+                row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
+                           max_abs_err=max(e for e, _ in errs.values()),
+                           errors={n: e for n, (e, _) in errs.items()}, limits={n: l for n, (_, l) in errs.items()},
+                           ulp_limits=ulps,
+                           kernel_ms=time_ms(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop), iters=10),
+                           plain_ms=time_ms(lambda: attention_bwd_plain(q, k, v, mask, do, pdrop), iters=10),
+                           library_ms=time_ms(lambda: torch.autograd.grad(
+                               F.scaled_dot_product_attention(*leaves), leaves, do), iters=10),
+                           bound_ms=bms, bound_by=by)
+                log(f"kernel attention_bwd d{D} {variant}", **row)
+                summary[("attention_bwd", D, variant, dtype)] = row
+    return summary
+
+
+def phase_conv3x3_train(dev) -> dict:
+    """`conv3x3_train` at the layer-1 shapes of a B=64 train step in bf16:
+    its forward and its input gradient (the conv3x3 kernel with the flipped,
+    transposed weight) against the plain versions; then one backward through
+    autograd against the plain version's (dx and the library's dw).
+    library_ms: cuDNN `F.conv2d` and `torch.nn.grad.conv2d_input`."""
+    from diffusiondrive_torch.ops.conv_fused import (
+        conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
+
+    gen = torch.Generator().manual_seed(5)
+    one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    dtype = torch.bfloat16
+    summary = {}
+    for label, shape in CONV_TRAIN:
+        B, H, W, _ = shape
+        x, g = nhwc_randn(shape, gen, dev, dtype), nhwc_randn(shape, gen, dev, dtype)
+        w_oihw = (torch.randn(64, 64, 3, 3, generator=gen) / 24.0).to(dev, dtype)
+        w = to_hwio(w_oihw, dtype)
+        w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+        res = {}
+        for name, fn in (("kernel", conv3x3_train), ("plain", conv3x3_train_plain)):
+            xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+            fn(xl, wl).backward(g)
+            res[name] = (xl.grad, wl.grad)
+        torch.cuda.synchronize()
+        auto_err = {n: check_close(f"conv3x3_train {label} autograd {n}", a, b, TOL[dtype])[0]
+                    for n, a, b in zip(("dx", "dw"), res["kernel"], res["plain"])}
+        flops = 2.0 * B * H * W * 64 * 576
+        nbytes = x.element_size() * (2.0 * B * H * W * 64 + 576 * 64)
+        bms, by = bound_ms(flops, nbytes, dtype)
+        for part, kern, plain, lib in (
+            ("fwd", lambda: conv3x3_train(x, w), lambda: conv3x3_train_plain(x, w),
+             lambda: F.conv2d(x, w_oihw, padding=1)),
+            ("dx", lambda: fused_conv3x3(g, w_flip, one, zero), lambda: conv3x3_plain(g, w_flip, one, zero),
+             lambda: torch.nn.grad.conv2d_input(x.shape, w_oihw, g, padding=1)),
+        ):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err, limit = check_close(f"conv3x3_train {label} {part}", got, want, TOL[dtype])
+            row = dict(shape=list(shape), dtype=str(dtype), part=part, max_abs_err=err, limit=limit,
+                       autograd_max_abs_err=auto_err, kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+                       library_ms=time_ms(lib), bound_ms=bms, bound_by=by)
+            log(f"kernel conv3x3_train {label} {part}", **row)
+            summary[("conv3x3_train", label, part)] = row
+    return summary
+
+
 def _outputs_ok(out: dict, batch: int) -> None:
     shapes = {"trajectory": (batch, 8, 3), "poses_reg": (batch, 20, 8, 3), "poses_cls": (batch, 20),
               "agent_states": (batch, 30, 5), "agent_labels": (batch, 30),
@@ -286,8 +470,12 @@ def _outputs_ok(out: dict, batch: int) -> None:
 
 
 def phase_main_path(dev) -> dict:
+    """The planner under the default config (counts zeroed before, read
+    after), then one float32 forward with both kernel switches on
+    (`main_path_fused`, counted on its own). Returns the counts by path."""
     from diffusiondrive_torch.entry import build_model, example_inputs
     from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.attention_fused import fused_attention
     from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
     from diffusiondrive_torch.ops.stem_fused import fused_stem
 
@@ -300,8 +488,7 @@ def phase_main_path(dev) -> dict:
     inputs_cpu = example_inputs(cfg, 1, cpu, seed=1)
     inputs_gpu = {k: v.to(dev) for k, v in inputs_cpu.items()}
 
-    fused_stem.launches = 0
-    fused_conv3x3.launches = 0
+    fused_stem.launches = fused_conv3x3.launches = fused_attention.launches = 0
     forwards = 0
     with torch.no_grad():
         # (a) float32, B=1: card with the kernels vs CPU with the plain versions
@@ -344,11 +531,34 @@ def phase_main_path(dev) -> dict:
             fps[batch] = batch * iters / dt
             log(f"main_path bf16 b{batch}", frames_per_s=fps[batch], ms_per_forward=dt / iters * 1e3,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    counts = {"stem": fused_stem.launches, "conv3x3": fused_conv3x3.launches}
-    if counts != {"stem": 2 * forwards, "conv3x3": 12 * forwards}:
-        raise AssertionError(f"launch counts {counts} over {forwards} forwards, want 2 and 12 each")
+    counts = {"stem": fused_stem.launches, "conv3x3": fused_conv3x3.launches,
+              "attention_fwd": fused_attention.launches}
+    if counts != {"stem": 2 * forwards, "conv3x3": 12 * forwards, "attention_fwd": 0}:
+        raise AssertionError(f"launch counts {counts} over {forwards} forwards, want 2 stem, 12 conv3x3 "
+                             f"and no attention each")
     log("main_path launches", forwards=forwards, **counts)
-    return counts
+    del model
+
+    # (c) float32, B=1, both switches on: the fused attention in all 8 fusion blocks
+    model_fused = build_model(_fused_config(), torch.float32, seed=0)
+    model_fused.load_state_dict(model_cpu.state_dict())
+    model_fused = model_fused.to(dev)
+    fused_stem.launches = fused_conv3x3.launches = fused_attention.launches = 0
+    with torch.no_grad():
+        out_fused = model_fused(**inputs_gpu, diffusion_noise=noise.to(dev))
+    torch.cuda.synchronize()
+    fused_counts = {"stem": fused_stem.launches, "conv3x3": fused_conv3x3.launches,
+                    "attention_fwd": fused_attention.launches}
+    if fused_counts != {"stem": 2, "conv3x3": 12, "attention_fwd": 8}:
+        raise AssertionError(f"main_path fused: launches {fused_counts}, want 2 stem, 12 conv3x3, 8 attention")
+    _outputs_ok(out_fused, 1)
+    errs = {k: check_close(f"main_path f32 fused {k}", out_fused[k].cpu(), out_cpu[k], MAIN_TOL)[0]
+            for k in out_cpu}
+    if int(out_fused["poses_cls"].argmax(-1).item()) != int(cls.argmax().item()):
+        raise AssertionError("main_path fused: argmax mode differs from the CPU's")
+    log("main_path f32 b1 fused card-vs-cpu", max_abs_err=errs, tol_rel=MAIN_TOL, argmax_equal=True,
+        launches=fused_counts)
+    return {"main_path": counts, "main_path_fused": fused_counts}
 
 
 def phase_agent_path(dev) -> dict:
@@ -356,13 +566,14 @@ def phase_agent_path(dev) -> dict:
     from diffusiondrive_torch.agents.diffusiondrive.features import RawSensorFeatureBuilder
     from diffusiondrive_torch.entry import agent_entry, example_agent_input
     from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.attention_fused import fused_attention
     from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
     from diffusiondrive_torch.ops.lidar_splat import histogram2d
     from diffusiondrive_torch.ops.stem_fused import fused_stem
 
     cfg = TransfuserConfig()
     builder = RawSensorFeatureBuilder(cfg)
-    fused_stem.launches = fused_conv3x3.launches = histogram2d.launches = 0
+    fused_stem.launches = fused_conv3x3.launches = histogram2d.launches = fused_attention.launches = 0
     forwards = 0
     with torch.no_grad():
         # (a) float32, B=1: the agent on the card against the same agent on the CPU, one
@@ -447,10 +658,10 @@ def phase_agent_path(dev) -> dict:
                 mbytes=sum(v.nbytes for v in features.values()) / 1e6)
             log(f"agent_path bf16 b{batch}", **rows[batch])
     counts = {"splat": histogram2d.launches, "stem": fused_stem.launches,
-              "conv3x3": fused_conv3x3.launches}
-    if counts != {"splat": forwards, "stem": 2 * forwards, "conv3x3": 12 * forwards}:
+              "conv3x3": fused_conv3x3.launches, "attention_fwd": fused_attention.launches}
+    if counts != {"splat": forwards, "stem": 2 * forwards, "conv3x3": 12 * forwards, "attention_fwd": 0}:
         raise AssertionError(f"launch counts {counts} over {forwards} agent forwards, "
-                             f"want 1 splat, 2 stem and 12 conv3x3 each")
+                             f"want 1 splat, 2 stem, 12 conv3x3 and no attention each")
     log("agent_path launches", forwards=forwards, **counts)
     return counts
 
@@ -540,72 +751,129 @@ def _first_above(dist: dict, limit: float):
 
 def phase_train_f32(dev) -> None:
     """One float32 train step at full width, B=2: the card against the CPU,
-    with a float64 step on each as the witness (`entry.train_step_on`).
+    with a float64 step on each as the witness (`entry.train_step_on`), at
+    each of `COMPARISON_SEEDS` (`entry.comparison_batch`, the camera
+    normalised on the host so every run reads the same input).
 
-    Loss terms: card f32 vs CPU f32 within 1e-3 x max(1, |CPU|). Gradients,
-    per parameter by relative L2 (`entry.grad_distances`): card f64 vs CPU
-    f64 within 1e-6 (the card's arithmetic, with the conditioning of the
-    model taken out), and card f32 vs CPU f64 within min(1e-2 + 2 x the CPU
-    f32 step's own distance to it, 0.1): the card's float32 step is held to
-    the CPU's float32 accuracy against the same float64 reference. The
-    float32 gradient of a train-mode BatchNorm network is a sum with heavy
-    cancellation (the BN backward subtracts the batch mean of the incoming
-    gradient), so at full width it sits percents from the float64 one on
-    every device (PERF.md, PR 3). BN running statistics: card f32 vs CPU f32
-    within 1e-4 x max(1, |CPU|). Every run reads the same inputs
-    (`entry.comparison_batch`, the camera normalised on the host). Also
-    logged: the card f32 step with cuDNN off, and where each step's forward
-    outputs leave the float64 ones, module by module.
+    Each float32 step takes the CPU float64 step's side at every ReLU, |x|
+    and max-pool (`entry.Kinks`, impose): where an input lies within
+    float32 rounding of a kink, a float32 step may take either side, and
+    the gradients behind that unit then jump by all that it carries; that
+    measures where the rounding fell, not the arithmetic (PERF.md §6).
+    On the same side, per seed:
+
+    - every ReLU and max-pool input of the card float32 steps (default and
+      switched) and the CPU float32 step within `KINK_TOL` x max |float64|
+      of the float64 step's, so a side is imposed only where the float32
+      input is that close;
+    - loss terms: card f32 vs CPU f32 within 1e-3 x max(1, |CPU|);
+    - gradients, per parameter by relative L2 (`entry.grad_distances`):
+      card f64 vs CPU f64 within 1e-6 (the card's arithmetic, with the
+      conditioning of the model taken out); card f32, default and with both
+      kernel switches on (`card_f32_fused`), vs CPU f64 within
+      `entry.gradient_limits` of the CPU f32 step: min(1e-2 + 2 x its own
+      distance, 0.1). On their own sides, ~100 ReLUs per full-width step
+      fall the other way and move the gradients a median ~0.5% on every
+      device; on float64's sides, ~3e-5 (PERF.md §6);
+    - BN running statistics: card f32 vs CPU f32 within 1e-4 x max(1, |CPU|).
+
+    The default card float32 step on its own sides keeps the gradient gate
+    it held before the sides were imposed (against the CPU f32 step on its own sides).
+    Logged, not gated: the switched step on its own sides, where each step
+    took another side than float64 (`Kinks.summary`), the card f32 step
+    with cuDNN off, and where each step's forward outputs leave the float64
+    ones, module by module.
     """
     from diffusiondrive_torch.entry import (
-        build_model, comparison_batch, grad_distances, output_distances, train_step_on)
+        Kinks, build_model, comparison_batch, grad_distances, gradient_limits, output_distances, train_step_on)
     from diffusiondrive_torch.models.config import TransfuserConfig
 
-    cfg = TransfuserConfig()
+    cfg, cfg_fused = TransfuserConfig(), _fused_config()
     model = build_model(cfg, torch.float32, seed=0).train()
-    batch, ts, noise = comparison_batch(model, cfg, 2, seed=5)
+    model_fused = build_model(cfg_fused, torch.float32, seed=0).train()
+    model_fused.load_state_dict(model.state_dict())
     cpu = torch.device("cpu")
-    runs = {}
-    for label, d, dtype, cudnn in (("card_f32", dev, torch.float32, True), ("card_f64", dev, torch.float64, True),
-                                   ("card_f32_no_cudnn", dev, torch.float32, False),
-                                   ("cpu_f32", cpu, torch.float32, True), ("cpu_f64", cpu, torch.float64, True)):
+    counters = _launch_counters()
+    for seed in COMPARISON_SEEDS:
+        batch, ts, noise = comparison_batch(model, cfg, 2, seed=seed)
+        ref_kinks = Kinks()
         t0 = time.perf_counter()
-        runs[label] = train_step_on(model, cfg, batch, ts, noise, d, dtype, cudnn=cudnn, record=True)
-        runs[label]["seconds"] = time.perf_counter() - t0
-        if d.type == "cuda" and runs[label]["lap_launches"] != 1:
-            raise AssertionError(f"train_path {label}: {runs[label]['lap_launches']} LAP launches, want 1")
-    ref = runs["cpu_f64"]
-    grads = {k: grad_distances(r["grads"], ref["grads"]) for k, r in runs.items() if k != "cpu_f64"}
-    outs = {k: output_distances(r["outputs"], ref["outputs"]) for k, r in runs.items() if k != "cpu_f64"}
-    lc, lg = runs["cpu_f32"]["losses"], runs["card_f32"]["losses"]
-    loss_err = {k: abs(lg[k] - v) for k, v in lc.items()}
-    sc, sg = runs["cpu_f32"]["stats"], runs["card_f32"]["stats"]
-    bn_err = max((sg[k] - b).abs().max().item() / max(1.0, b.abs().max().item()) for k, b in sc.items())
-    limit = {k: min(1e-2 + 2.0 * v, 0.1) for k, v in grads["cpu_f32"].items()}
-    over = {k: v / limit[k] for k, v in grads["card_f32"].items()}
-    worst = max(over, key=over.get)
-    worst64 = max(grads["card_f64"], key=grads["card_f64"].get)
-    log("train_path f32 b2 card-vs-cpu", losses_cpu=lc, loss_max_abs_err=loss_err, params=len(ref["grads"]),
-        seconds={k: r["seconds"] for k, r in runs.items()},
-        grad_rel_l2_vs_cpu_f64={k: _quantiles(v.values()) for k, v in grads.items()},
-        grad_worst_param=worst, grad_worst_rel_l2=grads["card_f32"][worst], grad_worst_limit=limit[worst],
-        grad_card_f64_worst=[worst64, grads["card_f64"][worst64]], bn_stats_max_rel_err=bn_err,
-        bn_tensors=len(sc))
-    log("train_path f32 b2 losses", **{k: r["losses"] for k, r in runs.items()})
-    log("train_path f32 b2 grads by part vs cpu_f64", order="backward", **{k: _by_group(v) for k, v in grads.items()})
-    log("train_path f32 b2 forward outputs vs cpu_f64", modules=len(outs["cpu_f32"]), order="forward", **{
-        k: {"first_above": {f"{t:g}": _first_above(v, t) for t in (1e-12, 1e-9, 1e-7, 1e-5, 1e-4)},
-            "worst": max(v.items(), key=lambda kv: kv[1])} for k, v in outs.items()})
-    for k, v in lc.items():
-        if not loss_err[k] <= 1e-3 * max(1.0, abs(v)):
-            raise AssertionError(f"train_path f32 {k}: card {lg[k]} vs CPU {v}")
-    if not grads["card_f64"][worst64] <= 1e-6:
-        raise AssertionError(f"train_path f64 grad {worst64}: card vs CPU relative L2 {grads['card_f64'][worst64]}")
-    if not over[worst] <= 1.0:
-        raise AssertionError(f"train_path f32 grad {worst}: relative L2 to the CPU's float64 step "
-                             f"{grads['card_f32'][worst]} > {limit[worst]}")
-    if not bn_err <= 1e-4:
-        raise AssertionError(f"train_path f32 BN running statistics: max rel err {bn_err} > 1e-4")
+        ref = train_step_on(model, cfg, batch, ts, noise, cpu, torch.float64, record=True, kinks=ref_kinks)
+        seconds = {"cpu_f64": time.perf_counter() - t0}
+        runs, kinks = {}, {}
+        # label: device, dtype, cuDNN, switched, on the float64 step's sides
+        for label, d, dtype, cudnn, fused, same in (
+                ("cpu_f32", cpu, torch.float32, True, False, True),
+                ("card_f32", dev, torch.float32, True, False, True),
+                ("card_f64", dev, torch.float64, True, False, True),
+                ("card_f32_no_cudnn", dev, torch.float32, False, False, True),
+                ("card_f32_fused", dev, torch.float32, True, True, True),
+                ("cpu_f32_own_side", cpu, torch.float32, True, False, False),
+                ("card_f32_own_side", dev, torch.float32, True, False, False),
+                ("card_f32_fused_own_side", dev, torch.float32, True, True, False)):
+            before = {k: f.launches for k, f in counters.items()}
+            kinks[label] = Kinks(ref_kinks, impose=same)
+            t0 = time.perf_counter()
+            runs[label] = train_step_on(model_fused if fused else model, cfg_fused if fused else cfg, batch, ts,
+                                        noise, d, dtype, cudnn=cudnn, record=same, kinks=kinks[label])
+            seconds[label] = time.perf_counter() - t0
+            launched = {k: f.launches - before[k] for k, f in counters.items()}
+            if d.type == "cuda" and launched != STEP_LAUNCHES[fused]:
+                raise AssertionError(f"train_path {label}: launches {launched}, want {STEP_LAUNCHES[fused]}")
+        grads = {k: grad_distances(r["grads"], ref["grads"]) for k, r in runs.items()}
+        limit = gradient_limits(runs["cpu_f32"]["grads"], ref["grads"])
+        limit_own = gradient_limits(runs["cpu_f32_own_side"]["grads"], ref["grads"])
+        over = {k: {p: v / (limit_own if k.endswith("own_side") else limit)[p] for p, v in grads[k].items()}
+                for k in ("card_f32", "card_f32_fused", "card_f32_own_side", "card_f32_fused_own_side")}
+        worst = {k: max(v.items(), key=lambda kv: kv[1]) for k, v in over.items()}
+        kink_err = {k: kinks[k].summary(("relu", "max_pool2d"))["max_err"]
+                    for k in ("cpu_f32", "card_f32", "card_f32_fused")}
+        lc = runs["cpu_f32"]["losses"]
+        loss_err = {k: {t: abs(runs[k]["losses"][t] - v) for t, v in lc.items()}
+                    for k in ("card_f32", "card_f32_fused")}
+        sc = runs["cpu_f32"]["stats"]
+        bn_err = {k: max((runs[k]["stats"][t] - b).abs().max().item() / max(1.0, b.abs().max().item())
+                         for t, b in sc.items()) for k in ("card_f32", "card_f32_fused")}
+        worst64 = max(grads["card_f64"], key=grads["card_f64"].get)
+        outs = {k: output_distances(r["outputs"], ref["outputs"]) for k, r in runs.items() if r["outputs"]}
+        log(f"train_path f32 b2 seed {seed} kinks", kinks=len(ref_kinks.calls),
+            **{k: k_.summary() for k, k_ in kinks.items() if k != "card_f64"})
+        log(f"train_path f32 b2 seed {seed} card-vs-cpu", losses_cpu=lc, loss_max_abs_err=loss_err,
+            params=len(ref["grads"]), seconds=seconds, kink_input_max_err=kink_err, kink_tol=KINK_TOL,
+            grad_rel_l2_vs_cpu_f64={k: _quantiles(v.values()) for k, v in grads.items()},
+            grad_worst_over_limit=worst, grad_card_f64_worst=[worst64, grads["card_f64"][worst64]],
+            bn_stats_max_rel_err=bn_err, bn_tensors=len(sc))
+        log(f"train_path f32 b2 fused seed {seed}", launches=STEP_LAUNCHES[True],
+            loss_max_abs_err=max(loss_err["card_f32_fused"].values()),
+            grad_rel_l2_vs_cpu_f64=_quantiles(grads["card_f32_fused"].values()),
+            grad_worst_over_limit=worst["card_f32_fused"], own_side_worst_over_limit=worst["card_f32_fused_own_side"],
+            bn_stats_max_rel_err=bn_err["card_f32_fused"])
+        log(f"train_path f32 b2 seed {seed} losses", **{k: r["losses"] for k, r in runs.items()})
+        log(f"train_path f32 b2 seed {seed} grads by part vs cpu_f64", order="backward",
+            **{k: _by_group(v) for k, v in grads.items()})
+        log(f"train_path f32 b2 seed {seed} forward outputs vs cpu_f64", modules=len(outs["cpu_f32"]),
+            order="forward", **{k: {"first_above": {f"{t:g}": _first_above(v, t) for t in (1e-12, 1e-9, 1e-7,
+                                                                                            1e-5, 1e-4)},
+                                    "worst": max(v.items(), key=lambda kv: kv[1])} for k, v in outs.items()})
+        for k, (where, op, err) in kink_err.items():
+            if not err <= KINK_TOL:
+                raise AssertionError(f"train_path f32 seed {seed} {k}: {op} input at {where} {err} of max "
+                                     f"|float64| from the float64 step's > {KINK_TOL}")
+        for k, errs in loss_err.items():
+            for t, v in lc.items():
+                if not errs[t] <= 1e-3 * max(1.0, abs(v)):
+                    raise AssertionError(f"train_path f32 seed {seed} {k} {t}: card {runs[k]['losses'][t]} vs CPU {v}")
+        if not grads["card_f64"][worst64] <= 1e-6:
+            raise AssertionError(f"train_path f64 seed {seed} grad {worst64}: card vs CPU relative L2 "
+                                 f"{grads['card_f64'][worst64]}")
+        for k in ("card_f32", "card_f32_fused", "card_f32_own_side"):
+            p, o = worst[k]
+            if not o <= 1.0:
+                raise AssertionError(f"train_path f32 seed {seed} {k} grad {p}: relative L2 to the CPU's float64 "
+                                     f"step {grads[k][p]}, {o} of its limit")
+        for k, e in bn_err.items():
+            if not e <= 1e-4:
+                raise AssertionError(f"train_path f32 seed {seed} {k} BN running statistics: max rel err {e} > 1e-4")
 
 
 class _Counts:
@@ -613,11 +881,7 @@ class _Counts:
     end, by phase."""
 
     def __init__(self):
-        from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
-        from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
-        from diffusiondrive_torch.ops.stem_fused import fused_stem
-
-        self.fns = {"lap": batched_linear_sum_assignment, "stem": fused_stem, "conv3x3": fused_conv3x3}
+        self.fns = _launch_counters()
         self.delta = {}
         self.wall = {}
         self._start = {}
@@ -653,7 +917,10 @@ def _syncs_in(fn) -> list:
 
 
 def phase_train_bf16(dev) -> dict:
-    """`Trainer.fit` in bf16 at full width over a seeded cache, B=8 and B=64."""
+    """`Trainer.fit` in bf16 at full width over a seeded cache, B=8 and B=64,
+    under the default config and then with both kernel switches on (the
+    same cache; dropout live). Returns the launch counts of the fits by path,
+    "train_path" and "train_path_fused"."""
     from diffusiondrive_torch.agents.diffusiondrive.features import (
         TransfuserFeatureBuilder, TransfuserTargetBuilder)
     from diffusiondrive_torch.entry import build_model, write_example_cache
@@ -662,77 +929,96 @@ def phase_train_bf16(dev) -> dict:
     from diffusiondrive_torch.training.train import OptimizerConfig, train_step
     from diffusiondrive_torch.training.trainer import Trainer
 
-    cfg = TransfuserConfig()
-    launches = {}
+    launches = {"train_path": {}, "train_path_fused": {}}
     for B in (8, 64):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             t0 = time.perf_counter()
-            write_example_cache(Path(tmp) / "cache", cfg, 3 * B, seed=B)
+            write_example_cache(Path(tmp) / "cache", TransfuserConfig(), 3 * B, seed=B)
             cache_s = time.perf_counter() - t0
-            ds = CacheOnlyDataset(str(Path(tmp) / "cache"), [TransfuserFeatureBuilder(cfg)],
-                                  [TransfuserTargetBuilder(cfg)])
-            counts = _Counts()
-            opt = OptimizerConfig(epochs=2, warmup_epochs=1, steps_per_epoch=3, ema_decay=0.999)
-            trainer = Trainer(build_model(cfg, torch.bfloat16, seed=0).to(dev), cfg, opt,
-                              output_dir=str(Path(tmp) / "out"), seed=0, callbacks=[counts])
-            torch.cuda.reset_peak_memory_stats()
-            for f in counts.fns.values():
-                f.launches = 0
-            trainer.fit(lambda epoch: batch_iterator(ds, B, seed=epoch), 2,
-                        val_batches=lambda epoch: batch_iterator(ds, B, shuffle=False),
-                        validate_every_epochs=2, checkpoint_every_epochs=2)
-            torch.cuda.synchronize()
-            fit_counts = counts._now()
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            if not (Path(tmp) / "out" / "epoch_0001" / "state.pt").exists():
-                raise AssertionError(f"train_path bf16 b{B}: no checkpoint written")
-            train_rows = [json.loads(ln) for ln in (Path(tmp) / "out" / "metrics.jsonl").read_text().splitlines()
-                          if '"train"' in ln]
-            if len(train_rows) != 6 or not all(np.isfinite(v) for r in train_rows for v in r.values()
-                                               if isinstance(v, float)):
-                raise AssertionError(f"train_path bf16 b{B}: metrics rows {train_rows}")
-            val = trainer.last_val_metrics
-            if not val or not all(np.isfinite(v) for v in val.values()):
-                raise AssertionError(f"train_path bf16 b{B}: validation metrics {val}")
-            for epoch in (0, 1):
-                if counts.delta[("train", epoch)] != {"lap": 3, "stem": 0, "conv3x3": 0}:
-                    raise AssertionError(f"train_path bf16 b{B} train epoch {epoch}: launches "
-                                         f"{counts.delta[('train', epoch)]}, want 3 LAP, no stem/conv3x3")
-            forwards = 3 * 2  # 3 batches, weights and EMA
-            if counts.delta[("val", 1)] != {"lap": forwards, "stem": 2 * forwards, "conv3x3": 12 * forwards}:
-                raise AssertionError(f"train_path bf16 b{B} validation: launches {counts.delta[('val', 1)]} "
-                                     f"over {forwards} forwards, want 1 LAP, 2 stem, 12 conv3x3 each")
-            if fit_counts != {k: sum(d[k] for d in counts.delta.values()) for k in fit_counts}:
-                raise AssertionError(f"train_path bf16 b{B}: launches {fit_counts} outside the epochs")
-            for k, v in fit_counts.items():
-                launches[k] = launches.get(k, 0) + v
-            step_s = counts.wall[("train", 1)] / 3
-            # host syncs in one more train step (after the count is read)
-            batch = trainer.to_device(next(iter(batch_iterator(ds, B, shuffle=False))))
-            step_syncs = _syncs_in(lambda: train_step(trainer.state, cfg, batch, trainer.step_generator(99)))
-            row = dict(steps_per_s=1.0 / step_s, samples_per_s=B / step_s, ms_per_step=step_s * 1e3,
-                       timed="second epoch, 3 steps, with batch loading and the copy",
-                       first_epoch_s=counts.wall[("train", 0)], val_s=counts.wall[("val", 1)],
-                       peak_mem_gb=peak_gb, cache_write_s=cache_s, train_losses_last=train_rows[-1],
-                       val=val, host_syncs_in_one_train_step=len(step_syncs),
-                       sync_sources=sorted(set(step_syncs))[:8], launches_fit=fit_counts,
-                       launches_train={k: counts.delta[("train", 0)][k] + counts.delta[("train", 1)][k]
-                                       for k in ("lap", "stem", "conv3x3")},
-                       launches_val=counts.delta[("val", 1)])
-            log(f"train_path bf16 b{B}", **row)
-            del trainer, batch
-            torch.cuda.empty_cache()
+            for fused in (False, True):
+                cfg = _fused_config() if fused else TransfuserConfig()
+                name = f"train_path bf16 b{B}" + (" fused" if fused else "")
+                out = Path(tmp) / ("out_fused" if fused else "out")
+                ds = CacheOnlyDataset(str(Path(tmp) / "cache"), [TransfuserFeatureBuilder(cfg)],
+                                      [TransfuserTargetBuilder(cfg)])
+                counts = _Counts()
+                opt = OptimizerConfig(epochs=2, warmup_epochs=1, steps_per_epoch=3, ema_decay=0.999)
+                trainer = Trainer(build_model(cfg, torch.bfloat16, seed=0).to(dev), cfg, opt,
+                                  output_dir=str(out), seed=0, callbacks=[counts])
+                torch.cuda.reset_peak_memory_stats()
+                for f in counts.fns.values():
+                    f.launches = 0
+                trainer.fit(lambda epoch: batch_iterator(ds, B, seed=epoch), 2,
+                            val_batches=lambda epoch: batch_iterator(ds, B, shuffle=False),
+                            validate_every_epochs=2, checkpoint_every_epochs=2)
+                torch.cuda.synchronize()
+                fit_counts = counts._now()
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                if not (out / "epoch_0001" / "state.pt").exists():
+                    raise AssertionError(f"{name}: no checkpoint written")
+                train_rows = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()
+                              if '"train"' in ln]
+                if len(train_rows) != 6 or not all(np.isfinite(v) for r in train_rows for v in r.values()
+                                                   if isinstance(v, float)):
+                    raise AssertionError(f"{name}: metrics rows {train_rows}")
+                val = trainer.last_val_metrics
+                if not val or not all(np.isfinite(v) for v in val.values()):
+                    raise AssertionError(f"{name}: validation metrics {val}")
+                for epoch in (0, 1):
+                    want = {k: 3 * v for k, v in STEP_LAUNCHES[fused].items()}
+                    if counts.delta[("train", epoch)] != want:
+                        raise AssertionError(f"{name} train epoch {epoch}: launches "
+                                             f"{counts.delta[('train', epoch)]} over 3 steps, want {want}")
+                forwards = 3 * 2  # 3 batches, weights and EMA
+                want = {k: forwards * v for k, v in VAL_LAUNCHES[fused].items()}
+                if counts.delta[("val", 1)] != want:
+                    raise AssertionError(f"{name} validation: launches {counts.delta[('val', 1)]} "
+                                         f"over {forwards} forwards, want {want}")
+                if fit_counts != {k: sum(d[k] for d in counts.delta.values()) for k in fit_counts}:
+                    raise AssertionError(f"{name}: launches {fit_counts} outside the epochs")
+                path = launches["train_path_fused" if fused else "train_path"]
+                for k, v in fit_counts.items():
+                    path[k] = path.get(k, 0) + v
+                step_s = counts.wall[("train", 1)] / 3
+                # host syncs in one more train step (after the count is read)
+                batch = trainer.to_device(next(iter(batch_iterator(ds, B, shuffle=False))))
+                step_syncs = _syncs_in(lambda: train_step(trainer.state, cfg, batch, trainer.step_generator(99)))
+                row = dict(steps_per_s=1.0 / step_s, samples_per_s=B / step_s, ms_per_step=step_s * 1e3,
+                           timed="second epoch, 3 steps, with batch loading and the copy",
+                           first_epoch_s=counts.wall[("train", 0)], val_s=counts.wall[("val", 1)],
+                           peak_mem_gb=peak_gb, cache_write_s=cache_s, train_losses_last=train_rows[-1],
+                           val=val, host_syncs_in_one_train_step=len(step_syncs),
+                           sync_sources=sorted(set(step_syncs))[:8], launches_fit=fit_counts,
+                           launches_train={k: counts.delta[("train", 0)][k] + counts.delta[("train", 1)][k]
+                                           for k in fit_counts},
+                           launches_val=counts.delta[("val", 1)])
+                log(name, **row)
+                del trainer, batch
+                torch.cuda.empty_cache()
     return launches
 
 
 def phase_train_path(dev) -> dict:
     """The training path: `Trainer.fit` in bf16 (the launch counts are set
     to 0 just before each fit and read just after it, summed over B=8 and
-    B=64), then the float32 card-vs-CPU step."""
+    B=64, by config), then the float32 card-vs-CPU steps."""
     counts = phase_train_bf16(dev)
-    log("train_path launches", **counts)
+    for path, c in counts.items():
+        log(f"{path} launches", **c)
     phase_train_f32(dev)
     return counts
+
+
+def _stage_sum(summary: dict, kernel: str) -> dict:
+    """One attention kernel's bf16 masked rows summed over the four fusion
+    stages' head widths: the time of one call per stage, as a train step
+    makes them in each block."""
+    rows = [summary[(kernel, D, "masked", torch.bfloat16)] for D in ATTN_D]
+    out = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    out["shape"] = (f"bf16 (B, H, T) = {ATTN_BHT}, p=0.1 mask, summed over D = {ATTN_D}; "
+                    "library_ms: scaled_dot_product_attention unmasked")
+    return out
 
 
 def main() -> int:
@@ -748,9 +1034,10 @@ def main() -> int:
     phase_device()
     build_logs = phase_build()
     summary = phase_kernels(dev)
+    summary.update(phase_attention(dev))
+    summary.update(phase_conv3x3_train(dev))
     summary.update(phase_lap(dev, build_logs))
-    counts = {"main_path": phase_main_path(dev), "agent_path": phase_agent_path(dev),
-              "train_path": phase_train_path(dev)}
+    counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev), **phase_train_path(dev)}
 
     bf = torch.bfloat16
     kernels = []
@@ -767,6 +1054,12 @@ def main() -> int:
         ("lap", "lap", summary[("lap", 64)], "diffusiondrive_torch/csrc/lap.cu",
          "diffusiondrive_tpu/ops/hungarian.py:138",
          [v["max_abs_err"] for k, v in summary.items() if k[0] == "lap"]),
+        ("attention_fwd", "attention_fwd", _stage_sum(summary, "attention_fwd"),
+         "diffusiondrive_torch/csrc/attention_fused.cu", "diffusiondrive_tpu/ops/attention_fused.py:78",
+         [v["max_abs_err"] for k, v in summary.items() if k[0] == "attention_fwd" and k[-1] == bf]),
+        ("attention_bwd", "attention_bwd", _stage_sum(summary, "attention_bwd"),
+         "diffusiondrive_torch/csrc/attention_fused.cu", "diffusiondrive_tpu/ops/attention_fused.py:92",
+         [v["max_abs_err"] for k, v in summary.items() if k[0] == "attention_bwd" and k[-1] == bf]),
     ):
         by_path = {path: c[key] for path, c in counts.items() if key in c}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -774,7 +1067,9 @@ def main() -> int:
                         "max_abs_err": max(errs), "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "pass": True,
-                        **({"library": row["library"]} if "library" in row else {})})
+                        **{k: row[k] for k in ("library", "shape") if k in row}})
+    kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part)][k] for k in (
+        "kernel_ms", "plain_ms", "bound_ms", "library_ms")} for label in ("image", "lidar") for part in ("fwd", "dx")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

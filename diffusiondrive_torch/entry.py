@@ -13,17 +13,23 @@ of them (the format `training/dataset.py` reads) for the training path;
 `place_targets_at_predictions` makes a batch's detection assignment unique
 for comparisons across devices or packages; `train_step_on` runs one
 float32 or float64 train step of a copy of a model on a device and returns
-what such a comparison reads (`grad_distances`, `output_distances`).
+what such a comparison reads (`grad_distances`, `output_distances`,
+`gradient_limits`); `Kinks` records, compares or imposes the side a train
+step's forward takes at each ReLU, |x| and max-pool, so that two steps'
+gradients are compared on the same side of every kink.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from diffusiondrive_torch.common.dataclasses import (
     CAMERA_NAMES, AgentInput, Camera, Cameras, EgoStatus, Lidar)
@@ -256,7 +262,8 @@ def _record_outputs(model: torch.nn.Module, store: Dict[str, List[torch.Tensor]]
 
 def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: Dict[str, np.ndarray],
                   timesteps: torch.Tensor, noise: torch.Tensor, device: Union[str, torch.device],
-                  dtype: torch.dtype = torch.float32, cudnn: bool = True, record: bool = False) -> dict:
+                  dtype: torch.dtype = torch.float32, cudnn: bool = True, record: bool = False,
+                  kinks: Optional["Kinks"] = None) -> dict:
     """One train step (default `OptimizerConfig`) of a copy of the float32
     `model` on `device`, dropout off, with the diffusion draws fixed.
 
@@ -266,7 +273,9 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
     Returns the loss terms, every parameter's gradient and the BatchNorm
     running statistics after the step (float64, on the CPU), the number of
     LAP launches the step made and, with `record`, a sample of every
-    module's forward output (`_record_outputs`).
+    module's forward output (`_record_outputs`). With `kinks`, the step runs
+    under it (`Kinks`: records, compares or imposes the side taken at each
+    ReLU, |x| and max-pool).
     """
     from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
     from diffusiondrive_torch.training.train import OptimizerConfig, create_train_state, train_step
@@ -280,14 +289,15 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
         m = copy.deepcopy(model).to(device)
     disable_dropout(m)
     store: Dict[str, List[torch.Tensor]] = {}
-    handles = _record_outputs(m, store) if record else []
+    handles = (_record_outputs(m, store) if record else []) + (kinks.attach(m) if kinks is not None else [])
     state = create_train_state(m, OptimizerConfig())
     lap0 = batched_linear_sum_assignment.launches
     cudnn_was = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = cudnn
     try:
-        losses = train_step(state, config, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
-                            timesteps=timesteps.to(device), noise=noise.to(device))
+        with kinks if kinks is not None else contextlib.nullcontext():
+            losses = train_step(state, config, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                timesteps=timesteps.to(device), noise=noise.to(device))
     finally:
         torch.backends.cudnn.enabled = cudnn_was
         for h in handles:
@@ -296,6 +306,130 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
             "grads": {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
             "stats": {k: b.detach().double().cpu() for k, b in m.named_buffers() if "running" in k},
             "lap_launches": batched_linear_sum_assignment.launches - lap0, "outputs": store}
+
+
+_RELU = (F.relu, torch.relu, torch.Tensor.relu)
+_ABS = (torch.abs, torch.Tensor.abs)
+
+
+class Kinks(TorchFunctionMode):
+    """The points where a train step's forward is not differentiable, in call
+    order: the input of every ReLU and |x|, and the windows of every max-pool.
+
+    With no `ref` it records, per call, the input (a copy on the CPU) and the
+    side taken: x > 0 for a ReLU, sign(x) for |x|, each window's argmax for a
+    pool. Given the record of another run it compares instead, per call
+    (`seen`): `err`, the largest |x - x_ref| over max |x_ref|, and `flips`,
+    the elements that took another side, with `near`, the largest |x_ref|
+    over max |x_ref| among them (for a pool, the gap between the two
+    windows' picks in `ref`): how far from the kink the reference lay where
+    the two runs parted. With `impose`, the forward takes `ref`'s side at
+    every kink: a ReLU as x * [x_ref > 0], |x| as x * sign(x_ref), a pool
+    gathering at `ref`'s argmax. Where an input lies within rounding of a
+    kink, a float32 and a float64 step may take either side, and the
+    gradients downstream then differ by all that the unit carries; imposing
+    one run's sides on another compares their gradients on the same side of
+    every kink (PERF.md §6). Imposing a run's own record changes none
+    of its values. Use through `train_step_on(kinks=...)`, which attaches it
+    to the model (`attach` names the module of each call) and runs the step
+    under it; a second run needs a new instance.
+    """
+
+    def __init__(self, ref: Optional["Kinks"] = None, impose: bool = False):
+        super().__init__()
+        if impose and ref is None:
+            raise ValueError("Kinks: impose needs a reference record")
+        self.ref, self.impose = ref, impose
+        self.calls: List[Tuple[str, str, torch.Tensor, torch.Tensor]] = []
+        self.seen: List[dict] = []
+        self._where = ["(loss)"]
+
+    def attach(self, model: torch.nn.Module) -> List[torch.utils.hooks.RemovableHandle]:
+        """Forward hooks on `model`'s modules that keep the innermost running
+        module's name, to label each call."""
+        def enter(module, args, name):
+            self._where.append(name)
+
+        def leave(module, args, out):
+            self._where.pop()
+
+        handles = []
+        for name, mod in model.named_modules():
+            if name:
+                handles.append(mod.register_forward_pre_hook(lambda m, a, n=name: enter(m, a, n)))
+                handles.append(mod.register_forward_hook(leave))
+        return handles
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        op = "relu" if func in _RELU else "abs" if func in _ABS else "max_pool2d" if func is F.max_pool2d else None
+        if op is None or not args[0].is_floating_point():
+            return func(*args, **kwargs)
+        x = args[0]
+        if op == "max_pool2d":
+            out, side = F.max_pool2d_with_indices(*args, **kwargs)
+        else:
+            out = func(*args, **kwargs)
+            side = x.detach() > 0 if op == "relu" else torch.sign(x.detach())
+        where = self._where[-1]
+        if self.ref is None:
+            self.calls.append((op, where, x.detach().to("cpu", copy=True), side.to("cpu", copy=True)))
+            return out
+        i = len(self.seen)
+        rop, rwhere, rx, rside = self.ref.calls[i]
+        if rop != op or rx.shape != x.shape:
+            raise RuntimeError(f"Kinks: call {i} is {op} {tuple(x.shape)} at {where}, the reference's "
+                               f"{rop} {tuple(rx.shape)} at {rwhere}")
+        rx, rside = rx.to(x.device), rside.to(x.device)
+        scale = rx.abs().max().double().clamp_min(1e-300)
+        differ = side != rside
+        flips = int(differ.sum())
+        near = 0.0
+        if flips:
+            if op == "max_pool2d":
+                flat = rx.flatten(2)
+                gap = (flat.gather(2, side.flatten(2)) - flat.gather(2, rside.flatten(2))).abs()
+                near = (gap.view(side.shape)[differ].max().double() / scale).item()
+            else:
+                near = (rx.abs()[differ].max().double() / scale).item()
+        err = ((x.detach().double() - rx.double()).abs().max() / scale).item()
+        self.seen.append({"op": op, "where": where, "err": err, "flips": flips, "near": near})
+        if not self.impose:
+            return out
+        if op == "max_pool2d":
+            picked = x.flatten(2).gather(2, rside.flatten(2)).view(out.shape)
+            return picked.contiguous(memory_format=torch.channels_last) \
+                if x.is_contiguous(memory_format=torch.channels_last) else picked
+        return x * rside.to(x.dtype)
+
+    def summary(self, ops: Sequence[str] = ("relu", "abs", "max_pool2d")) -> dict:
+        """After a compared run, over the calls of `ops`: their number, the
+        largest `err` and where, the flips by part of the model (first name
+        component; the backbone's two), each call with flips outside the
+        backbone, and the three backbone calls whose flips lay farthest from
+        the kink in the reference: ``[where, op, flips, near]``."""
+        seen = [c for c in self.seen if c["op"] in ops]
+        worst = max(seen, key=lambda c: c["err"])
+        parts: Dict[str, int] = {}
+        for c in seen:
+            if c["flips"]:
+                part = ".".join(c["where"].split(".")[:2 if c["where"].startswith("backbone") else 1])
+                parts[part] = parts.get(part, 0) + c["flips"]
+        flipped = [c for c in seen if c["flips"]]
+        head = [c for c in flipped if not c["where"].startswith("backbone")]
+        far = sorted((c for c in flipped if c["where"].startswith("backbone")), key=lambda c: -c["near"])[:3]
+        return {"kinks": len(seen), "max_err": [worst["where"], worst["op"], worst["err"]],
+                "flips": sum(c["flips"] for c in seen), "flips_by_part": parts,
+                "flips_outside_backbone": [[c["where"], c["op"], c["flips"], c["near"]] for c in head],
+                "farthest_backbone_flips": [[c["where"], c["op"], c["flips"], c["near"]] for c in far]}
+
+
+def gradient_limits(cpu_f32: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The float32 gradient gate per parameter: relative L2 to the float64
+    step `ref` within min(1e-2 + 2 x the CPU float32 step's own distance to
+    it, 0.1), so a device's float32 step is held to the CPU's float32
+    accuracy (PERF.md §2)."""
+    return {k: min(1e-2 + 2.0 * v, 0.1) for k, v in grad_distances(cpu_f32, ref).items()}
 
 
 def grad_distances(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],

@@ -8,7 +8,13 @@ Feature maps are NCHW logical in channels_last memory. In train mode the
 GPT's dropouts are live (`embd_pdrop` on the tokens, `attn_pdrop` on the
 attention probabilities, `resid_pdrop` on the projection and the MLP
 output); in eval mode they are the identity. The GPT attention is plain
-matmul + softmax, as the JAX package's default path is.
+matmul + softmax under the config's `fused_attention_mode="auto"`, as the
+JAX package's default path is; under "on" (or "interpret") it is
+`ops/attention_fused.py:fused_attention` wherever the token count and head
+width pass `supports_fused_attention`, with the dropout's keep mask drawn
+from the same generator, in the same amount, as the plain path's dropout
+draws it. `fused_conv_mode` reaches the ResNet stems and stages
+(`models/resnet.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch.nn.functional as F
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.layers import Conv2d, Dropout, LayerNorm, Linear, softmax_f32
 from diffusiondrive_torch.models.resnet import ARCH_SPECS, ResNetStage, ResNetStem
+from diffusiondrive_torch.ops.attention_fused import (
+    dropout_keep_mask, fused_attention, supports_fused_attention)
 from diffusiondrive_torch.ops.sampling import adaptive_avg_pool2d, resize_bilinear
 
 
@@ -30,9 +38,10 @@ class GPTSelfAttention(nn.Module):
     """Fused-token self-attention (query/key/value/proj)."""
 
     def __init__(self, n_embd: int, n_head: int, attn_pdrop: float, resid_pdrop: float,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_mode: str = "auto"):
         super().__init__()
         self.n_head = n_head
+        self.fused_mode = fused_mode
         self.query = Linear(n_embd, n_embd, dtype=dtype)
         self.key = Linear(n_embd, n_embd, dtype=dtype)
         self.value = Linear(n_embd, n_embd, dtype=dtype)
@@ -48,8 +57,17 @@ class GPTSelfAttention(nn.Module):
             return t.reshape(B, T, self.n_head, d_head).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        att = self.attn_drop(softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head)))
-        y = (att @ v).transpose(1, 2).reshape(B, T, C)
+        if self.fused_mode in ("on", "interpret") and supports_fused_attention(T, d_head):
+            pdrop = self.attn_drop.p if self.training else 0.0
+            mask = None
+            if pdrop > 0.0:
+                mask = dropout_keep_mask(self.attn_drop.generator, (B, self.n_head, T, T), pdrop,
+                                         x.device)
+            y = fused_attention(q, k, v, mask, pdrop)
+        else:
+            att = self.attn_drop(softmax_f32((q @ k.transpose(-2, -1)) / math.sqrt(d_head)))
+            y = att @ v
+        y = y.transpose(1, 2).reshape(B, T, C)
         return self.resid_drop(self.proj(y))
 
 
@@ -57,10 +75,10 @@ class GPTBlock(nn.Module):
     """Pre-LN transformer block with ReLU MLP."""
 
     def __init__(self, n_embd: int, n_head: int, block_exp: int, attn_pdrop: float,
-                 resid_pdrop: float, dtype: torch.dtype = torch.float32):
+                 resid_pdrop: float, dtype: torch.dtype = torch.float32, fused_mode: str = "auto"):
         super().__init__()
         self.ln1 = LayerNorm(n_embd, dtype)
-        self.attn = GPTSelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop, dtype)
+        self.attn = GPTSelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop, dtype, fused_mode)
         self.ln2 = LayerNorm(n_embd, dtype)
         self.mlp_fc1 = Linear(n_embd, block_exp * n_embd, dtype=dtype)
         self.mlp_fc2 = Linear(block_exp * n_embd, n_embd, dtype=dtype)
@@ -83,7 +101,7 @@ class GPTFusion(nn.Module):
         self.pos_emb = nn.Parameter(torch.zeros(1, self.n_img + n_lidar, n_embd))
         for i in range(cfg.n_layer):
             self.add_module(f"block{i}", GPTBlock(n_embd, cfg.n_head, cfg.block_exp, cfg.attn_pdrop,
-                                                  cfg.resid_pdrop, dtype))
+                                                  cfg.resid_pdrop, dtype, cfg.fused_attention_mode))
         self.ln_f = LayerNorm(n_embd, dtype)
         self.embd_drop = Dropout(cfg.embd_pdrop)
 
@@ -111,15 +129,16 @@ class TransfuserBackbone(nn.Module):
         cfg = self.config = config
         img_block, img_sizes, img_widths, img_chs = ARCH_SPECS[cfg.image_architecture]
         lid_block, lid_sizes, lid_widths, lid_chs = ARCH_SPECS[cfg.lidar_architecture]
-        self.image_encoder_stem = ResNetStem(3, dtype)
-        self.lidar_encoder_stem = ResNetStem(cfg.lidar_in_channels, dtype)
+        conv_mode = cfg.fused_conv_mode
+        self.image_encoder_stem = ResNetStem(3, dtype, conv_mode)
+        self.lidar_encoder_stem = ResNetStem(cfg.lidar_in_channels, dtype, conv_mode)
         img_in = lid_in = 64
         for i in range(4):
             stride = 1 if i == 0 else 2
             self.add_module(f"image_encoder_layer{i + 1}", ResNetStage(
-                img_in, img_widths[i], img_sizes[i], stride, img_block, dtype))
+                img_in, img_widths[i], img_sizes[i], stride, img_block, dtype, conv_mode))
             self.add_module(f"lidar_encoder_layer{i + 1}", ResNetStage(
-                lid_in, lid_widths[i], lid_sizes[i], stride, lid_block, dtype))
+                lid_in, lid_widths[i], lid_sizes[i], stride, lid_block, dtype, conv_mode))
             img_in, lid_in = img_chs[i], lid_chs[i]
             self.add_module(f"lidar_to_img{i}", Conv2d(lid_chs[i], img_chs[i], 1, dtype=dtype))
             self.add_module(f"fusion{i}", GPTFusion(img_chs[i], cfg, dtype))

@@ -1,9 +1,21 @@
 """Model hyperparameter config.
 
-Copy of `diffusiondrive_tpu/models/config.py:TransfuserConfig` without the
-TPU-only knobs `fused_conv_mode` and `fused_attention_mode`: in the port the
-kernels are chosen by the tensor's device and the module's mode (see
-`models/resnet.py`), and the GPT fusion attention is plain PyTorch.
+Copy of `diffusiondrive_tpu/models/config.py:TransfuserConfig`, with the
+same kernel switches and values:
+
+- `fused_conv_mode`: "auto" runs the stem and layer-1 conv kernels in eval
+  mode and the train step on the library's convolutions; "off" runs no stem
+  or conv3x3 kernel in either mode; "train" adds `conv3x3_train` (the
+  layer-1 conv kernel for the forward and the input gradient) to the train
+  step; "interpret" is "train" (in JAX it runs both kernel paths off the TPU).
+- `fused_attention_mode`: "auto" runs the GPT fusion attention as plain
+  matmul + softmax; "on" runs the fused attention kernels
+  (`ops/attention_fused.py`) wherever `supports_fused_attention(T, d_head)`
+  holds, in train and eval mode; "interpret" is "on".
+
+The switches choose kernel or module path; the tensor's device then
+chooses kernel or plain version: a CPU tensor takes the plain version, a
+CUDA tensor the kernel.
 """
 
 from __future__ import annotations
@@ -12,6 +24,9 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+
+FUSED_CONV_MODES = ("auto", "off", "train", "interpret")
+FUSED_ATTENTION_MODES = ("auto", "on", "interpret")
 
 
 @dataclass(frozen=True)
@@ -24,6 +39,8 @@ class TransfuserConfig:
 
     image_architecture: str = "resnet34"
     lidar_architecture: str = "resnet34"
+    fused_conv_mode: str = "auto"          # FUSED_CONV_MODES
+    fused_attention_mode: str = "auto"     # FUSED_ATTENTION_MODES
     bkb_path: Optional[str] = None
     plan_anchor_path: Optional[str] = None
 
@@ -110,6 +127,13 @@ class TransfuserConfig:
     # Optimizer
     weight_decay: float = 1e-4
     cfg_lr_mult: float = 0.5  # lr multiplier for the image encoder
+
+    def __post_init__(self):
+        if self.fused_conv_mode not in FUSED_CONV_MODES:
+            raise ValueError(f"fused_conv_mode {self.fused_conv_mode!r} not in {FUSED_CONV_MODES}")
+        if self.fused_attention_mode not in FUSED_ATTENTION_MODES:
+            raise ValueError(f"fused_attention_mode {self.fused_attention_mode!r} "
+                             f"not in {FUSED_ATTENTION_MODES}")
 
     @property
     def bev_semantic_frame(self) -> Tuple[int, int]:

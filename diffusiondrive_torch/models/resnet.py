@@ -5,17 +5,18 @@ interleaves sensor-fusion transformers between ResNet stages. Tensors are
 NCHW logical in channels_last memory. Module names follow the Flax scopes
 (conv1/bn1/conv2/bn2/downsample_conv/downsample_bn, block{i}).
 
-In eval mode the stem and every 64-channel identity BasicBlock (layer 1)
-call the fused ops (`ops/stem_fused.py`, `ops/conv_fused.py`) with no gate
-on the input: those run their plain versions for CPU tensors, launch the
-CUDA kernels for CUDA tensors, and raise for a CUDA tensor the kernel does
-not take. Their operands (the HWIO weight in the compute dtype and the
-exact float32 BN affine) are made once per dtype and device. Train mode
-takes the module path on every device: `F.conv2d` (cuDNN on the card),
-BatchNorm with batch statistics (`layers.BatchNorm2d`), ReLU, pool. The
-fused kernels stay eval-only, as under the JAX package's default
-`fused_mode="auto"`, whose train step runs XLA's convolutions. BN eps is
-1e-5.
+`fused_mode` is the config's `fused_conv_mode`. In eval mode, unless it is
+"off", the stem and every 64-channel identity BasicBlock (layer 1) call the
+fused ops (`ops/stem_fused.py`, `ops/conv_fused.py`) with no gate on the
+input: those run their plain versions for CPU tensors, launch the CUDA
+kernels for CUDA tensors, and raise for a CUDA tensor the kernel does not
+take. Their operands (the HWIO weight in the compute dtype and the exact
+float32 BN affine) are made once per dtype and device. Train mode takes the
+module path: `F.conv2d` (cuDNN on the card), BatchNorm with batch statistics
+(`layers.BatchNorm2d`), ReLU, pool; with "train" or "interpret" the two convs
+of each layer-1 block run `conv3x3_train` instead (the conv3x3 kernel for the
+forward and the input gradient), BatchNorm, ReLU and the residual as before.
+BN eps is 1e-5.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusiondrive_torch.models.layers import BatchNorm2d, Conv2d
-from diffusiondrive_torch.ops.conv_fused import fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.conv_fused import conv3x3_train, fused_conv3x3, to_hwio
 from diffusiondrive_torch.ops.stem_fused import fused_stem
 
 ARCH_SPECS = {
@@ -59,15 +60,17 @@ def _kernel_operands(module: nn.Module, conv_name: str, bn_name: str, dtype: tor
 class ResNetStem(nn.Module):
     """conv7x7/2 + BN + ReLU + maxpool3x3/2 (overall reduction 4)."""
 
-    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
+                 fused_mode: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        self.fused_mode = fused_mode
         self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(64, dtype)
         self._operands = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training and self.fused_mode != "off":
             w, s, b = _kernel_operands(self, "conv1", "bn1", self.dtype)
             return fused_stem(_channels_last(x, self.dtype), w, s, b)
         x = F.relu(self.bn1(self.conv1(x)))
@@ -78,9 +81,10 @@ class BasicBlock(nn.Module):
     """Two 3x3 convs with identity or 1x1 downsample residual (torchvision BasicBlock)."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_mode: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        self.fused_mode = fused_mode
         self.conv1 = Conv2d(in_features, features, 3, stride=stride, padding=1, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(features, dtype)
         self.conv2 = Conv2d(features, features, 3, padding=1, bias=False, dtype=dtype)
@@ -94,7 +98,7 @@ class BasicBlock(nn.Module):
         self._operands = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training and self.fused:
+        if not self.training and self.fused and self.fused_mode != "off":
             x = _channels_last(x, self.dtype)
             w1, s1, b1 = _kernel_operands(self, "conv1", "bn1", self.dtype)
             w2, s2, b2 = _kernel_operands(self, "conv2", "bn2", self.dtype)
@@ -102,6 +106,12 @@ class BasicBlock(nn.Module):
             return fused_conv3x3(y, w2, s2, b2, residual=x, relu=True)
 
         residual = x
+        if self.training and self.fused and self.fused_mode in ("train", "interpret"):
+            y = conv3x3_train(_channels_last(x, self.dtype), to_hwio(self.conv1.weight, self.dtype))
+            y = F.relu(self.bn1(y))
+            y = self.bn2(conv3x3_train(_channels_last(y, self.dtype),
+                                       to_hwio(self.conv2.weight, self.dtype)))
+            return F.relu(y + residual.to(y.dtype))
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         if self.has_downsample:
@@ -113,14 +123,14 @@ class ResNetStage(nn.Module):
     """A stack of BasicBlocks block0..blockN-1; the first downsamples when `stride` > 1."""
 
     def __init__(self, in_features: int, features: int, num_blocks: int, stride: int = 1,
-                 block: str = "basic", dtype: torch.dtype = torch.float32):
+                 block: str = "basic", dtype: torch.dtype = torch.float32, fused_mode: str = "auto"):
         super().__init__()
         if block != "basic":
             raise NotImplementedError(f"ResNet block {block!r} is not ported yet")
         self.num_blocks = num_blocks
         for i in range(num_blocks):
             self.add_module(f"block{i}", BasicBlock(in_features if i == 0 else features, features,
-                                                    stride if i == 0 else 1, dtype))
+                                                    stride if i == 0 else 1, dtype, fused_mode))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_blocks):

@@ -25,8 +25,10 @@ from typing import Dict, List, Optional, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# --split-compile=0: the device code's optimisation and ptxas run on every core
+# (halves the build of the attention source, which holds 24 kernel instances)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

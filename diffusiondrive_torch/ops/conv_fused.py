@@ -8,15 +8,22 @@ Counterpart of `diffusiondrive_tpu/ops/conv_fused.py:fused_conv3x3` and its
 `conv3x3_plain`, a CUDA tensor launches the kernel or raises. The TPU's
 width-pair packing (`pack_pairs`, `pack_conv3x3_weights`) is not ported: the
 kernel reads NHWC bytes directly, i.e. an NCHW tensor in channels_last memory.
+
+`conv3x3_train` (counterpart of JAX `conv3x3_train`) is the bare conv as a
+`torch.autograd.Function` for the train step: its forward and its input
+gradient run `fused_conv3x3` (identity affine), the weight gradient is the
+library's, as JAX leaves it to XLA. `conv3x3_train_plain` is the same
+function in plain PyTorch, differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from diffusiondrive_torch.ops._build import load_library
 
@@ -44,12 +51,13 @@ def to_hwio(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version: conv in `x`'s dtype, then the affine, the
-    residual add and the ReLU in float32, cast back to `x`'s dtype. `w` is
-    HWIO (3, 3, 64, 64)."""
-    y = F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), padding=1).float()
-    y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
+    residual add and the ReLU in float32 (float64 for a float64 `x`), cast
+    back to `x`'s dtype. `w` is HWIO (3, 3, 64, 64)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), padding=1).to(acc)
+    y = y * scale.to(acc)[:, None, None] + bias.to(acc)[:, None, None]
     if residual is not None:
-        y = y + residual.float()
+        y = y + residual.to(acc)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -119,3 +127,68 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: t
 
 
 fused_conv3x3.launches = 0
+
+
+_IDENTITY: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _identity_affine(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 (ones, zeros) of shape (64,) on `device`, made once per device."""
+    if device not in _IDENTITY:
+        _IDENTITY[device] = (torch.ones(64, device=device), torch.zeros(64, device=device))
+    return _IDENTITY[device]
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t` in channels_last memory at a 16-byte aligned address: as it is, or
+    a copy (autograd may hand a gradient in another layout), which the
+    profile sees as the range "conv3x3_train_grad_copy"."""
+    if t.is_contiguous(memory_format=torch.channels_last) and t.data_ptr() % 16 == 0:
+        return t
+    with record_function("conv3x3_train_grad_copy"):
+        return t.clone(memory_format=torch.channels_last)
+
+
+class _Conv3x3Train(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        s, b = _identity_affine(x.device)
+        return fused_conv3x3(x, w, s, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = _kernel_layout(g)
+        # dx[b, i, y, x] = sum g[b, o, y - dy + 1, x - dx + 1] w[dy, dx, i, o]: a pad-1 3x3
+        # conv of g with w'[a, c, o, i] = w[2 - a, 2 - c, i, o]
+        w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+        s, b = _identity_affine(x.device)
+        dx = fused_conv3x3(g, w_flip, s, b)
+        dw = torch.ops.aten.convolution_backward(
+            g, x, w.permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+        return dx, dw.permute(2, 3, 1, 0)
+
+
+def conv3x3_train(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable 3x3/s1/pad1 64 -> 64 conv on the conv3x3 kernel.
+
+    Forward: `fused_conv3x3` with an identity affine, no residual, no ReLU.
+    Input gradient: the same kernel on the output gradient with the weight
+    flipped in both spatial axes and in/out transposed. Weight gradient: the
+    library's (`aten.convolution_backward`, weight only). A CPU tensor takes
+    the plain versions inside `fused_conv3x3`.
+
+    :param x: (B, 64, H, W) float32 or bf16, contiguous in channels_last
+    :param w: (3, 3, 64, 64) HWIO in x's dtype, contiguous (`to_hwio`, which
+        autograd carries back to the OIHW parameter)
+    """
+    return _Conv3x3Train.apply(x, w)
+
+
+def conv3x3_train_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of `conv3x3_train`: `conv3x3_plain` with an identity
+    affine, differentiated by autograd."""
+    s, b = _identity_affine(x.device)
+    return conv3x3_plain(x, w, s, b)

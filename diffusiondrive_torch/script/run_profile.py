@@ -14,8 +14,14 @@ above an unprofiled forward's. With `--train` it profiles the bf16 training
 step instead (`training/train.py:train_step` on a seeded batch already on
 the card, AdamW at the default config): one "forward" is one step, and the
 components are the step's own ranges "forward", "loss", "lap" (inside
-"loss"), "backward" and "optimizer". Needs a CUDA device; there is no CPU
-fallback.
+"loss"), "backward" and "optimizer"; then it profiles the same step with
+both kernel switches on (`fused_conv_mode="train"`,
+`fused_attention_mode="on"`, path "train_fused"), whose components add the
+fused attention's forward and backward kernels, the conv3x3 kernel's
+forward and input-gradient launches (the first and second 12 of each
+step's 24, in stream order) and "conv3x3_train_grad_copy" (the gradient
+copied to channels_last, where autograd hands one over in another layout).
+Needs a CUDA device; there is no CPU fallback.
 
 Example (one GPU):
     python -m diffusiondrive_torch.script.run_profile --batch 16 --trace trace.json
@@ -84,23 +90,53 @@ def _agent_forward(batch: int):
     return (lambda: agent.predict(tensors)), agent.model, extra
 
 
-def _train_step(batch: int):
-    """(step, model, component names) for the bf16 training step."""
+def _train_step(batch: int, fused: bool = False):
+    """(step, component names) for the bf16 training step, with both kernel
+    switches on when `fused`."""
     from diffusiondrive_torch.device import resolve_device
     from diffusiondrive_torch.entry import build_model, example_training_sample
     from diffusiondrive_torch.models.config import TransfuserConfig
     from diffusiondrive_torch.training.dataset import collate
     from diffusiondrive_torch.training.train import OptimizerConfig, create_train_state, train_step
 
-    cfg, dev = TransfuserConfig(), resolve_device(None)
+    switches = {"fused_conv_mode": "train", "fused_attention_mode": "on"} if fused else {}
+    cfg, dev = TransfuserConfig(**switches), resolve_device(None)
     model = build_model(cfg, torch.bfloat16, seed=0).to(dev)
     state = create_train_state(model, OptimizerConfig())
     rng = np.random.default_rng(0)
     samples = collate([example_training_sample(cfg, rng) for _ in range(batch)])
     tensors = {k: torch.from_numpy(v).to(dev) for k, v in samples.items()}
     gen = torch.Generator(device=dev)
-    return (lambda: train_step(state, cfg, tensors, gen.manual_seed(0))), model, \
-        ["forward", "loss", "lap", "backward", "optimizer"]
+    names = ["forward", "loss", "lap", "backward", "optimizer"]
+    if fused:
+        names += ["attention_fwd", "attention_bwd", "conv3x3_train_fwd", "conv3x3_train_dx",
+                  "conv3x3_train_grad_copy"]
+    return (lambda: train_step(state, cfg, tensors, gen.manual_seed(0))), names
+
+
+def _by_kernel_name(kernels, n: int, out) -> None:
+    """Kernels launched through ctypes, found by their names. The LAP's
+    launch sits in no op record, so no op links to it: it is added to "lap"
+    and "loss". The fused attention's and conv3x3_train's launches sit inside
+    their autograd Functions' op records, which `_by_launch` already counts
+    in "forward" and "backward": here they get components of their own, the
+    conv3x3 kernel's launches of a switched step split into its 12 forwards
+    and then its 12 input gradients, in stream order."""
+    def add(names, ks):
+        if not ks:
+            return
+        for name in names:
+            out[name][0] += sum(k.time_range.elapsed_us() for k in ks) / 1e3 / n
+            out[name][1] += len(ks) / n
+
+    add(("lap", "loss"), [k for k in kernels if "lap_kernel" in k.name])
+    add(("attention_fwd",), [k for k in kernels if "attn_fwd_kernel" in k.name])
+    add(("attention_bwd",), [k for k in kernels if "attn_bwd_" in k.name])
+    conv = sorted((k for k in kernels if "conv3x3_kernel" in k.name), key=lambda k: k.time_range.start)
+    if conv:
+        per_step = len(conv) // n
+        add(("conv3x3_train_fwd",), [k for i, k in enumerate(conv) if i % per_step < per_step // 2])
+        add(("conv3x3_train_dx",), [k for i, k in enumerate(conv) if i % per_step >= per_step // 2])
 
 
 def _by_launch(events, names, n: int, out) -> None:
@@ -150,17 +186,23 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("run_profile: no CUDA device")
     if args.train:
-        forward, model, components = _train_step(args.batch)
-    elif args.agent:
+        for fused in (False, True):
+            forward, components = _train_step(args.batch, fused)
+            _profile("train_fused" if fused else "train", forward, components, args, train=True)
+        return
+    if args.agent:
         forward, model, extra = _agent_forward(args.batch)
     else:
         model, inputs = entry(dtype=torch.bfloat16, batch=args.batch)
         gen = torch.Generator(device=inputs["status_feature"].device)
         forward, extra = (lambda: model(**inputs, generator=gen.manual_seed(0))), []
-    if not args.train:
-        components = _annotate(model, DEPTH) + extra
+    _profile("agent" if args.agent else "planner", forward, _annotate(model, DEPTH) + extra, args, train=False)
+
+
+def _profile(path: str, forward, components, args, train: bool) -> None:
+    """Warm up, profile `FORWARDS` calls of `forward`, print the JSON lines."""
     n = FORWARDS
-    with contextlib.nullcontext() if args.train else torch.no_grad():
+    with contextlib.nullcontext() if train else torch.no_grad():
         for _ in range(3):
             forward()
         torch.cuda.synchronize()
@@ -171,7 +213,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        prof.export_chrome_trace(args.trace.replace(".json", f"_{path}.json") if train else args.trace)
 
     events = prof.events()
     names = set(components)
@@ -187,14 +229,9 @@ def main() -> None:
         by_kernel[e.name][0] += e.time_range.elapsed_us()
         by_kernel[e.name][1] += 1
     by_component = defaultdict(lambda: [0.0, 0, 0.0])
-    if args.train:
+    if train:
         _by_launch(events, names, n, by_component)
-        # the LAP kernel is launched through ctypes, outside PyTorch's op
-        # records, so no op links to it: find it by its name
-        lap = [k for k in kernels if "lap_kernel" in k.name]
-        for name in ("lap", "loss"):
-            by_component[name][0] += sum(k.time_range.elapsed_us() for k in lap) / 1e3 / n
-            by_component[name][1] += len(lap) / n
+        _by_kernel_name(kernels, n, by_component)
     else:
         # a component's device time: the kernels inside its range on the device timeline
         for e in on_device:
@@ -207,8 +244,7 @@ def main() -> None:
             by_component[e.name][2] += e.time_range.elapsed_us() / 1e3 / n
 
     print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": "bfloat16", "batch": args.batch,
-                      "path": "train" if args.train else "agent" if args.agent else "planner",
-                      "forwards": n, "wall_ms_per_forward": wall_ms,
+                      "path": path, "forwards": n, "wall_ms_per_forward": wall_ms,
                       "device_busy_ms_per_forward": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,
                       "kernel_launches_per_forward": len(kernels) / n,
@@ -218,7 +254,7 @@ def main() -> None:
         for k, v in sorted(by_component.items(), key=lambda kv: -kv[1][0])]}))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({"top_kernels": [{"name": k[:120], "ms_per_forward": v[0] / 1e3 / n,
-                                        "launches_per_forward": v[1] / n} for k, v in top]}))
+                                        "launches_per_forward": v[1] / n} for k, v in top]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from diffusiondrive_torch.models.resnet import ResNetStem
-from diffusiondrive_torch.ops.conv_fused import conv3x3_plain, fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.attention_fused import (
+    attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, fused_attention, fused_attention_bwd)
+from diffusiondrive_torch.ops.conv_fused import (
+    conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
 from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
@@ -121,13 +124,13 @@ def test_cuda_add_noise_takes_per_sample_timesteps(cuda_device):
 def test_cuda_train_step_matches_cpu(cuda_device):
     """One train step at a small config on the card (the LAP kernel, cuDNN
     convolutions) against the same step on the CPU, with a float64 step on
-    each as the witness, held as `chip_smoke.py` holds the full-width step:
+    each as the witness, held to `chip_smoke.py`'s limits on the step's own
+    sides:
     loss terms within 1e-3 x max(1, |CPU|); per parameter, the card's
     float64 gradient within 1e-6 relative L2 of the CPU's, and its float32
     gradient within min(1e-2 + 2x the CPU float32 gradient's distance, 0.1)
-    of the CPU's float64 one (float32 gradients of a train-mode BatchNorm
-    network carry its cancellation: PERF.md, PR 3); BN statistics within
-    1e-4."""
+    of the CPU's float64 one (a float32 step puts some ReLUs on the other
+    side of their kink: PERF.md §6); BN statistics within 1e-4."""
     from diffusiondrive_torch.entry import build_model, comparison_batch, grad_distances, train_step_on
     from diffusiondrive_torch.models.config import TransfuserConfig
 
@@ -152,3 +155,87 @@ def test_cuda_train_step_matches_cpu(cuda_device):
         assert dist <= min(1e-2 + 2.0 * cpu32[k], 0.1), (k, dist, cpu32[k])
     for k, b in runs[("cpu", f32)]["stats"].items():
         torch.testing.assert_close(runs[("cuda", f32)]["stats"][k], b, rtol=1e-4, atol=1e-4, msg=k)
+
+
+def _close(got, want, tol, name):
+    err = (got.float() - want.float()).abs().max().item()
+    limit = tol * max(1.0, want.float().abs().max().item())
+    assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T, D, masked):
+    """The forward and backward kernels against their plain versions at odd
+    shapes the gate takes (T = 8, 24, 504; D = 8, 33, 256), q, k, v and dO
+    read as (B, T, H, D) views, with and without a p = 0.25 keep mask.
+    Tolerances as in `chip_smoke.py`: float32 sums in another order; bf16
+    probabilities and score gradients rounded to bf16 on either side of a
+    last-bit difference."""
+    g = torch.Generator().manual_seed(T * D + masked)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(cuda_device, dtype).transpose(1, 2)
+                   for _ in range(4))
+    pdrop = 0.25 if masked else 0.0
+    mask = (dropout_keep_mask(torch.Generator(cuda_device).manual_seed(1), (B, H, T, T), pdrop,
+                              cuda_device) if masked else None)
+    fwd0, bwd0 = fused_attention.launches, fused_attention_bwd.launches
+    out = fused_attention(q, k, v, mask, pdrop)
+    grads = fused_attention_bwd(q, k, v, mask, do, pdrop)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert out.shape == (B, H, T, D) and out.dtype == dtype
+    _close(out, attention_fwd_plain(q, k, v, mask, pdrop), tol, "out")
+    for name, got, want in zip("dq dk dv".split(), grads, attention_bwd_plain(q, k, v, mask, do, pdrop)):
+        _close(got, want, tol, name)
+    # through autograd: the Function's backward is the backward kernel
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fused_attention(*leaves, mask, pdrop).backward(do)
+    assert fused_attention_bwd.launches == bwd0 + 2
+    for name, leaf, want in zip("dq dk dv".split(), leaves, grads):
+        torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    """A CUDA tensor launches the kernel or raises: no plain path on the card."""
+    q = torch.zeros(1, 2, 20, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_attention(q, q, q)
+    q = torch.zeros(1, 2, 24, 264, device=cuda_device)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_attention(q, q, q)
+    h = torch.zeros(1, 2, 24, 16, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        fused_attention(h, h, h)
+    q = torch.zeros(1, 2, 24, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="mask"):
+        fused_attention(q, q, q, torch.ones(1, 2, 24, 24, device=cuda_device), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_conv3x3_train_matches_plain_version(cuda_device, dtype, tol):
+    """Forward and input gradient on the conv3x3 kernel, the weight gradient
+    from the library, against `conv3x3_train_plain` through autograd, at odd
+    edges; the output gradient arrives in NCHW memory (the Function copies
+    it to channels_last)."""
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3 as kernel
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 20, 36, 64, generator=g).to(cuda_device, dtype).permute(0, 3, 1, 2)
+    w = to_hwio((torch.randn(64, 64, 3, 3, generator=g) * 0.05).to(cuda_device), dtype)
+    dy = torch.randn(2, 64, 20, 36, generator=g).to(cuda_device, dtype)
+    res = {}
+    for name, fn in (("kernel", conv3x3_train), ("plain", conv3x3_train_plain)):
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        before = kernel.launches
+        y = fn(xl, wl)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        res[name] = (y, xl.grad, wl.grad, kernel.launches - before)
+    assert res["kernel"][3] == 2 and res["plain"][3] == 0
+    for i, name in enumerate(("y", "dx")):
+        _close(res["kernel"][i], res["plain"][i], tol, name)
+    _close(res["kernel"][2], res["plain"][2], tol, "dw")
