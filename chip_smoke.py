@@ -8,7 +8,9 @@ line per phase, then one JSON line per kernel summary, then the result:
 1. ``device``  the card's name and power limit (nvidia-smi).
 2. ``build``   builds every CUDA kernel from `diffusiondrive_torch/csrc/`
                with nvcc for sm_90a (one nvcc per source, in parallel) into
-               `diffusiondrive_torch/_build/`; prints seconds and ptxas stats.
+               `diffusiondrive_torch/_build/`; prints seconds and ptxas stats,
+               and fails unless ptxas reports 0 spill bytes for each of the
+               four tensor-core attention forwards (`attn_fwd_mma_kernel`).
 3. ``kernel``  each kernel at its main-path shapes (B=16; the conv kernels in
                bf16 and f32) against its plain PyTorch version (max abs error
                and the tolerance; the lidar splat must be exact), timed with
@@ -17,7 +19,9 @@ line per phase, then one JSON line per kernel summary, then the result:
                for the same work (`bound_ms`). ``kernel attention_fwd`` /
                ``attention_bwd`` (the fused attention at the fusion blocks'
                B=64, H=4, T=320 and each stage's D = 16, 32, 64, 128, bf16
-               and f32, without and with a p=0.1 keep mask; library:
+               and f32, without and with a p=0.1 keep mask; `path` names the
+               forward kernel that ran, "mma" (bf16, tensor cores) or
+               "cuda_core" (f32); library:
                `scaled_dot_product_attention` unmasked) and ``kernel
                conv3x3_train`` (its forward and input gradient at the B=64
                layer-1 shapes in bf16, and one autograd backward against the
@@ -92,6 +96,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -206,6 +211,23 @@ def phase_device() -> str:
     return out
 
 
+def ptxas_spills(text: str, kernel: str) -> dict:
+    """{mangled function: [spill store bytes, spill load bytes]} for every
+    function whose name contains `kernel`, from an nvcc `-Xptxas -v` log."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name is not None:
+            if kernel in name:
+                out[name] = [int(m.group(1)), int(m.group(2))]
+            name = None
+    return out
+
+
 def phase_build() -> dict:
     from diffusiondrive_torch.ops import _build
 
@@ -216,8 +238,11 @@ def phase_build() -> dict:
         raise RuntimeError(f"kernel libraries not built: {missing}")
     stats = [ln.strip() for text in logs.values() for ln in text.splitlines()
              if "registers" in ln or "spill" in ln]
+    mma = ptxas_spills(logs["attention_fused"], "attn_fwd_mma_kernel") if "attention_fused" in logs else None
     log("build", seconds=round(time.time() - t0, 3), built=sorted(logs),
-        kernels=_build.kernel_names(), ptxas=stats[:24])
+        kernels=_build.kernel_names(), ptxas=stats[:24], attn_fwd_mma_spills=mma)
+    if mma is not None and (len(mma) != 4 or any(sum(v) for v in mma.values())):
+        raise AssertionError(f"attn_fwd_mma_kernel: want 4 instantiations with 0 spill bytes, got {mma}")
     return logs
 
 
@@ -358,7 +383,8 @@ def phase_attention(dev) -> dict:
     (and mask) bytes; the backward's 10·B·H·T²·D flops (the five products
     of a recomputing backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
     from diffusiondrive_torch.ops.attention_fused import (
-        attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, fused_attention, fused_attention_bwd)
+        attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, forward_kernel, fused_attention,
+        fused_attention_bwd)
 
     B, H, T = ATTN_BHT
     gen, mask_gen = torch.Generator().manual_seed(4), torch.Generator(device=dev)
@@ -379,8 +405,8 @@ def phase_attention(dev) -> dict:
                 err, limit = check_close(f"attention_fwd {tag}", got, want, TOL[dtype])
                 ulps = check_bf16_ulps(f"attention_fwd {tag}", got, want) if dtype == torch.bfloat16 else None
                 bms, by = bound_ms(4.0 * B * H * T * T * D, esize * 4.0 * B * H * T * D + mbytes, dtype)
-                row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant, max_abs_err=err, limit=limit,
-                           ulp_limit=ulps,
+                row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
+                           path=forward_kernel(dtype, D), max_abs_err=err, limit=limit, ulp_limit=ulps,
                            kernel_ms=time_ms(lambda: fused_attention(q, k, v, mask, pdrop), iters=10),
                            plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, mask, pdrop), iters=10),
                            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10),

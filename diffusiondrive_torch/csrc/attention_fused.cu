@@ -12,16 +12,39 @@
 // forward does 4*B*H*T^2*D = 13.4 GFLOP (13.6 us at 989 TFLOP/s) and moves
 // q, k, v, o = 84 MB plus a 26 MB mask (33 us at 3.35 TB/s): memory sets
 // the bound (about 120 flop/B against the ~295 the card needs before
-// compute binds); the backward does 2.5x the forward's flops over 1.75x its
-// bytes, also memory-bound. This first version multiplies on the CUDA
-// cores in f32 FMA (67 TFLOP/s peak), which keeps it far above that bound;
-// mma/wgmma on the tensor cores is later work.
+// compute binds); at D=16 the mask is 3/4 of the bytes. The backward does
+// 2.5x the forward's flops over 1.75x its bytes, also memory-bound.
 //
-// Design: the TPU kernel held all heads of a batch row with whole (T, T)
-// f32 tiles in VMEM; a (320, 320) f32 score matrix is 400 KB, above the
-// 227 KB of shared memory a block may use, so here a block owns one
-// (batch, head) and a tile of query rows (forward and dq pass) or key rows
-// (dk/dv pass) and streams the other operand through shared memory in tiles.
+// Two forward kernels:
+// - bf16 with D <= 128 (every fusion stage): `attn_fwd_mma_kernel`, on the
+//   tensor cores. Multiplying on the CUDA cores in f32 (the kernel below)
+//   ran 82x the bound at D=128: q.k^T issued 5 shared loads per 4 FMAs and
+//   p.v left lanes idle at D <= 32. Here q.k^T and p.v are
+//   mma.sync.m16n8k16 bf16 products with f32 accumulation. A block owns
+//   one (batch, head) and 64 query rows, 16 per warp, held as A fragments
+//   (D zero-padded to DP = 16, 32, 64 or 128). K (pass 1) and K, V and the
+//   mask (pass 2) stream through shared memory in 64-key tiles, double
+//   buffered with cp.async, and reach the products by ldmatrix (.trans for
+//   V). Pass 1 keeps each row's running max and sum in f32 (quad
+//   shuffles); pass 2 recomputes the scores bit for bit and forms the
+//   normalised, masked, bf16-rounded p straight from the accumulators (the
+//   C layout of two n8 tiles is the A layout of one k16 step). Each score
+//   is exponentiated in both passes, so exp is one FMA and the SFU's ex2
+//   (expf's eight instructions a score set the time at small D). Two passes,
+//   not an online rescale of the output: the JAX kernel rounds the
+//   normalised p, and the recomputed q.k^T costs flops where bytes bind
+//   (K and V of one head, <= 80 KB each at T = 320, come back from L2).
+// - float32, and bf16 with 128 < D <= 256 (no fusion stage): the CUDA-core
+//   kernel `attn_fwd_kernel`, f32 FMAs, 16 query rows per block with their
+//   scores in shared memory. TF32 products would break float32's 1e-4
+//   limit against the plain version.
+//
+// Design of the CUDA-core kernels: the TPU kernel held all heads of a
+// batch row with whole (T, T) f32 tiles in VMEM; a (320, 320) f32 score
+// matrix is 400 KB, above the 227 KB of shared memory a block may use, so
+// here a block owns one (batch, head) and a tile of query rows (forward and
+// dq pass) or key rows (dk/dv pass) and streams the other operand through
+// shared memory in tiles.
 // - forward: 16 query rows per block. Their scores against all T keys stay
 //   in shared memory (16 x T f32, <= 32 KB), get the exact two-pass row
 //   softmax, the mask and the rounding, and multiply V in 32-row tiles.
@@ -36,11 +59,14 @@
 //   are deterministic.
 // Operands are read through (batch, head, token) strides with a contiguous
 // last dimension, so q, k, v and dO come straight from the (B, T, H, D)
-// Linear outputs; each lane owns columns lane + 32c of D. Launches on the
-// caller's stream and allocates nothing.
+// Linear outputs; each lane owns columns lane + 32c of D. Every kernel
+// launches on the caller's stream and allocates nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -381,6 +407,342 @@ __global__ void __launch_bounds__(NT2) attn_bwd_dkdv_kernel(Args<T> a) {
   }
 }
 
+// ---- bf16 forward on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MQ = 64;        // query rows per block: 4 warps x 16
+constexpr int MK = 64;        // keys per streamed tile
+constexpr int MNT = 128;      // threads
+constexpr int NS = 2;         // tile buffers: one in use, one in flight (3 and 4 ran no faster at
+                              // T = 320, and slower at D = 128 with fewer blocks per SM)
+constexpr int MASK_LD = 80;   // mask row stride in shared memory (bytes): conflict-free u16 reads
+constexpr int VEC_QKV = 1;    // flags: q, k, v rows by 16-byte cp.async
+constexpr int VEC_MASK = 2;   //        mask rows by 8-byte cp.async
+constexpr int VEC_OUT = 4;    //        output column pairs as bf16x2
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// src_bytes = 0 zero-fills the destination without reading `src`.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// At most N groups are still in flight (this thread's copies).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower column
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + 64) of one head's (T, D) matrix into a [64][DP + 8] tile;
+// rows past T and columns past D become zero. With VEC_QKV by 16-byte
+// cp.async (D % 8 == 0, 16-byte aligned rows), else by element loads.
+template <int DP>
+__device__ __forceinline__ void load_rows(bf16* dst, const View<const bf16>& m, int b, int h, int r0,
+                                          int T_, int D, bool vec) {
+  constexpr int LD = DP + 8, CPR = DP / 8;
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < MK * CPR / MNT; ++it) {
+      const int e = threadIdx.x + it * MNT, r = e / CPR, c = (e - r * CPR) * 8;
+      const bool ok = r0 + r < T_ && c < D;
+      cp_async16(smem_u32(dst + r * LD + c), ok ? m.row(b, h, r0 + r) + c : m.p, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < MK * DP; e += MNT) {
+      const int r = e / DP, c = e - r * DP;
+      dst[r * LD + c] = r0 + r < T_ && c < D ? m.row(b, h, r0 + r)[c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The (64 query rows) x (64 keys) block of the keep mask at (i0, j0) of
+// head row `bh` into [64][MASK_LD] bytes; outside T x T zero.
+__device__ __forceinline__ void load_mask(unsigned char* dst, const unsigned char* mask, int bh,
+                                          int i0, int j0, int T_, bool vec) {
+  const size_t base = (size_t)bh * T_ * T_;
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < MQ * (MK / 8) / MNT; ++it) {
+      const int e = threadIdx.x + it * MNT, r = e / (MK / 8), c = (e - r * (MK / 8)) * 8;
+      const bool ok = i0 + r < T_ && j0 + c < T_;  // T % 8 == 0: a chunk is whole or out
+      cp_async8(smem_u32(dst + r * MASK_LD + c), ok ? mask + base + (size_t)(i0 + r) * T_ + j0 + c : mask,
+                ok ? 8 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < MQ * MK; e += MNT) {
+      const int r = e / MK, c = e - r * MK;
+      dst[r * MASK_LD + c] = i0 + r < T_ && j0 + c < T_ ? mask[base + (size_t)(i0 + r) * T_ + j0 + c] : 0;
+    }
+  }
+}
+
+// s = (q k^T) * scale for the warp's 16 rows and the tile's 64 keys, in
+// the mma C layout: s[n][0..1] row g, s[n][2..3] row g + 8, columns
+// 8n + 2(lane % 4) + {0, 1}; keys past T get -inf.
+template <int DP>
+__device__ __forceinline__ void tile_scores(float (&s)[MK / 8][4], const uint32_t (&qf)[DP / 16][4],
+                                            const bf16* kt, int j0, int T_, float scale) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4: keys +0..7 / d +0..7, keys +0..7 / d +8..15, keys +8..15 / ...
+  const int kr = (lane & 7) + ((lane >> 4) << 3), kc = ((lane >> 3) & 1) << 3;
+#pragma unroll
+  for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < MK / 16; ++np) {
+      uint32_t kb[4];
+      ldsm_x4(kb, smem_u32(kt + (np * 16 + kr) * LD + kk * 16 + kc));
+      mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+      mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+    }
+#pragma unroll
+  for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+  if (j0 + MK > T_) {  // the last tile: keys past T (whole n8 tiles, T % 8 == 0) get -inf
+    const float ninf = -__int_as_float(0x7f800000);
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n)
+      if (j0 + n * 8 >= T_) s[n][0] = s[n][1] = s[n][2] = s[n][3] = ninf;
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// exp(s - m), given ml = m * log2(e): one FMA and the SFU's ex2, against
+// about eight instructions for expf (relative error ~1e-6 for |s| < 100,
+// far below the 2^-9 of p's bf16 rounding).
+__device__ __forceinline__ float exp_shifted(float s, float ml) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(fmaf(s, LOG2E, -ml)));
+  return y;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(MNT) attn_fwd_mma_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DP + 8;  // +16 bytes a row: the 8 rows of an ldmatrix hit 8 bank groups
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [MQ][LD]
+  bf16* ks = qs + MQ * LD;                       // [NS][MK][LD]
+  bf16* vs = ks + NS * MK * LD;                  // [NS][MK][LD]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(vs + NS * MK * LD);  // [NS][MQ][MASK_LD]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nkt = (T_ + MK - 1) / MK, stages = 2 * nkt;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t < nkt: K tile t (pass 1); stage nkt + t: K, V and mask tile t
+  // (pass 2). NS buffers: stage t + NS - 1 is in flight while t is used.
+  auto issue = [&](int t) {
+    if (t < stages) {
+      const int buf = t % NS, j0 = (t < nkt ? t : t - nkt) * MK;
+      load_rows<DP>(ks + buf * MK * LD, a.k, b, h, j0, T_, D, vec);
+      if (t >= nkt) {
+        load_rows<DP>(vs + buf * MK * LD, a.v, b, h, j0, T_, D, vec);
+        if (a.mask) load_mask(ms + buf * MQ * MASK_LD, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+      }
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {  // prefetch stage t + NS - 1, then wait for stage t
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DP>(qs, a.q, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  cp_async_wait<NS - 1>();
+  __syncthreads();
+  uint32_t qf[DP / 16][4];  // the warp's 16 Q rows as A fragments
+  {
+    // ldmatrix.x4: rows +0..7 / d +0..7, rows +8..15 / d +0..7, rows +0..7 / d +8..15, ...
+    const int qr = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), qc = (lane >> 4) << 3;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], smem_u32(qs + qr * LD + kk * 16 + qc));
+  }
+  float mx[2], l[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+
+  // Pass 1: each row's max and sum of exp(s - max), online over the tiles.
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    float s[MK / 8][4];
+    tile_scores<DP>(s, qf, ks + (t % NS) * MK * LD, t * MK, T_, a.scale);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < MK / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < MK / 8; ++n)
+        sum += exp_shifted(s[n][2 * r], ml) + exp_shifted(s[n][2 * r + 1], ml);
+      l[r] = l[r] * exp_shifted(mx[r], ml) + sum;  // the first tile: exp(-inf) = 0
+      mx[r] = m;
+    }
+    __syncthreads();
+  }
+  float inv_l[2], mxl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv_l[r] = 1.f / quad_sum(l[r]);
+    mxl[r] = mx[r] * LOG2E;
+  }
+
+  // Pass 2: p = exp(s - max) / sum, the mask, rounded to bf16, times V.
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // ldmatrix.x4.trans of V: keys +0..7 / d +0..7, keys +8..15 / d +0..7, keys +0..7 / d +8..15, ...
+  const int vr = (lane & 7) + (((lane >> 3) & 1) << 3), vc = (lane >> 4) << 3;
+  for (int t = nkt; t < stages; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MK / 8][4];
+    tile_scores<DP>(s, qf, ks + buf * MK * LD, (t - nkt) * MK, T_, a.scale);
+    const unsigned char* mrow = ms + buf * MQ * MASK_LD + (warp * 16 + g) * MASK_LD + 2 * qd;
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n) {
+      uint32_t keep[2] = {0xffffu, 0xffffu};  // rows g, g + 8: columns 2qd, 2qd + 1 as bytes
+      if (a.mask) {
+        keep[0] = *reinterpret_cast<const uint16_t*>(mrow + n * 8);
+        keep[1] = *reinterpret_cast<const uint16_t*>(mrow + 8 * MASK_LD + n * 8);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = __fmul_rn(exp_shifted(s[n][e], mxl[e >> 1]), inv_l[e >> 1]);
+        if (a.mask) p = (keep[e >> 1] >> (8 * (e & 1))) & 0xffu ? __fmul_rn(p, a.inv_keep) : 0.f;
+        s[n][e] = p;
+      }
+    }
+    const bf16* vt = vs + buf * MK * LD;
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk) {
+      // the C layout of n8 tiles 2kk, 2kk + 1 is the A layout of k16 step kk
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, smem_u32(vt + (kk * 16 + vr) * LD + dp * 16 + vc));
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + warp * 16 + g + 8 * r;
+    if (i >= T_) continue;
+    bf16* orow = a.o.row(b, h, i);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = n * 8 + 2 * qd;
+      if (c >= D) continue;
+      if (flags & VEC_OUT) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+      } else {
+        orow[c] = __float2bfloat16(o[n][2 * r]);
+        if (c + 1 < D) orow[c + 1] = __float2bfloat16(o[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+bool is_aligned(const void* p, unsigned bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+template <typename U>
+bool rows_aligned(const View<U>& m, unsigned bytes) {
+  const long long e = bytes / sizeof(bf16);
+  return is_aligned(m.p, bytes) && m.sb % e == 0 && m.sh % e == 0 && m.st % e == 0;
+}
+
+template <int DP>
+cudaError_t fwd_mma(const Args<bf16>& a, cudaStream_t s) {
+  const size_t smem =
+      sizeof(bf16) * (size_t)(MQ + 2 * NS * MK) * (DP + 8) + (a.mask ? NS * MQ * MASK_LD : 0);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int flags = 0;
+  if (a.D % 8 == 0 && rows_aligned(a.q, 16) && rows_aligned(a.k, 16) && rows_aligned(a.v, 16))
+    flags |= VEC_QKV;
+  if (a.mask && is_aligned(a.mask, 8)) flags |= VEC_MASK;  // T % 8 == 0: every row 8-byte aligned
+  if (a.D % 2 == 0 && rows_aligned(a.o, 4)) flags |= VEC_OUT;
+  attn_fwd_mma_kernel<DP><<<dim3(a.B * a.H, (a.Tn + MQ - 1) / MQ), MNT, smem, s>>>(a, flags);
+  return cudaGetLastError();
+}
+
+cudaError_t fwd_mma_dispatch(const Args<bf16>& a, cudaStream_t s) {
+  if (a.D <= 16) return fwd_mma<16>(a, s);
+  if (a.D <= 32) return fwd_mma<32>(a, s);
+  if (a.D <= 64) return fwd_mma<64>(a, s);
+  return fwd_mma<128>(a, s);
+}
+
 template <typename T, int DC>
 cudaError_t fwd(const Args<T>& a, cudaStream_t s) {
   const int ld = a.D | 1;
@@ -410,13 +772,24 @@ cudaError_t bwd(const Args<T>& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Columns per lane: DC chunks of 32 cover D (8 <= D <= 256).
+// bf16 forwards with D <= 128 run on the tensor cores. The rest run on the
+// CUDA cores, with DC chunks of 32 columns per lane covering D (8 <= D <= 256).
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, bool backward, cudaStream_t s) {
-  if (a.D <= 32) return backward ? bwd<T, 1>(a, s) : fwd<T, 1>(a, s);
-  if (a.D <= 64) return backward ? bwd<T, 2>(a, s) : fwd<T, 2>(a, s);
-  if (a.D <= 128) return backward ? bwd<T, 4>(a, s) : fwd<T, 4>(a, s);
-  return backward ? bwd<T, 8>(a, s) : fwd<T, 8>(a, s);
+  if (backward) {
+    if (a.D <= 32) return bwd<T, 1>(a, s);
+    if (a.D <= 64) return bwd<T, 2>(a, s);
+    if (a.D <= 128) return bwd<T, 4>(a, s);
+    return bwd<T, 8>(a, s);
+  }
+  if constexpr (std::is_same<T, bf16>::value) {
+    return a.D <= 128 ? fwd_mma_dispatch(a, s) : fwd<T, 8>(a, s);
+  } else {
+    if (a.D <= 32) return fwd<T, 1>(a, s);
+    if (a.D <= 64) return fwd<T, 2>(a, s);
+    if (a.D <= 128) return fwd<T, 4>(a, s);
+    return fwd<T, 8>(a, s);
+  }
 }
 
 template <typename U>

@@ -6,14 +6,15 @@ NCHW logical in channels_last memory. Module names follow the Flax scopes
 (conv1/bn1/conv2/bn2/downsample_conv/downsample_bn, block{i}).
 
 `fused_mode` is the config's `fused_conv_mode`. In eval mode, unless it is
-"off", the stem and every 64-channel identity BasicBlock (layer 1) call the
-fused ops (`ops/stem_fused.py`, `ops/conv_fused.py`) with no gate on the
-input: those run their plain versions for CPU tensors, launch the CUDA
-kernels for CUDA tensors, and raise for a CUDA tensor the kernel does not
-take. Their operands (the HWIO weight in the compute dtype and the exact
-float32 BN affine) are made once per dtype and device. Train mode takes the
-module path: `F.conv2d` (cuDNN on the card), BatchNorm with batch statistics
-(`layers.BatchNorm2d`), ReLU, pool; with "train" or "interpret" the two convs
+"off", the stem (where `supports_fused_stem` holds for its input, as in
+JAX; otherwise the module path below) and every 64-channel identity
+BasicBlock (layer 1) call the fused ops (`ops/stem_fused.py`,
+`ops/conv_fused.py`): those run their plain versions for CPU tensors,
+launch the CUDA kernels for CUDA tensors, and raise for a CUDA tensor the
+kernel does not take. Their operands (the HWIO weight in the compute dtype
+and the exact float32 BN affine) are made once per dtype and device. Train
+mode takes the module path: `F.conv2d` (cuDNN on the card), BatchNorm with
+batch statistics (`layers.BatchNorm2d`), ReLU, pool; with "train" or "interpret" the two convs
 of each layer-1 block run `conv3x3_train` instead (the conv3x3 kernel for the
 forward and the input gradient), BatchNorm, ReLU and the residual as before.
 BN eps is 1e-5.
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from diffusiondrive_torch.models.layers import BatchNorm2d, Conv2d
 from diffusiondrive_torch.ops.conv_fused import conv3x3_train, fused_conv3x3, to_hwio
-from diffusiondrive_torch.ops.stem_fused import fused_stem
+from diffusiondrive_torch.ops.stem_fused import fused_stem, supports_fused_stem
 
 ARCH_SPECS = {
     # name: (block, stage_sizes, stage_widths, out_channels). The Bottleneck
@@ -70,7 +71,7 @@ class ResNetStem(nn.Module):
         self._operands = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training and self.fused_mode != "off":
+        if not self.training and self.fused_mode != "off" and supports_fused_stem(x):
             w, s, b = _kernel_operands(self, "conv1", "bn1", self.dtype)
             return fused_stem(_channels_last(x, self.dtype), w, s, b)
         x = F.relu(self.bn1(self.conv1(x)))

@@ -7,8 +7,10 @@
   detection loss (BCE + L1) and the BEV-semantic cross-entropy.
 
 The detection loss's assignment is `ops/hungarian.py` on the loss's own
-device (kernel B4 on the card), on the detached float32 cost: the step makes
-no host round trip for it. Nothing here synchronises with the host.
+device, on the detached float32 cost: kernel B4 on the card for n <= 31,
+with no host round trip; above that, as JAX takes its XLA solver, the plain
+solver on the card, whose loops read their exit condition on the host.
+Nothing else here synchronises with the host.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch.profiler import record_function
 
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.layers import stat_dtype
-from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+from diffusiondrive_torch.ops.hungarian import MAX_N, batched_linear_sum_assignment, linear_sum_assignment_plain
 from diffusiondrive_torch.ops.sampling import take_rows
 
 
@@ -98,9 +100,12 @@ def agent_detection_loss(targets: Dict[str, torch.Tensor], predictions: Dict[str
     cost = (config.agent_class_weight * _ce_cost(gt_valid, pred_logits)
             + config.agent_box_weight * _l1_cost(gt_states, pred_states, gt_valid))
     # cols[b, i] = the gt index matched to prediction i; no gradient flows
-    # through the assignment
+    # through the assignment. As JAX's `_lsa_local`: the kernel for the sizes
+    # it takes, the plain solver on the cost's own device otherwise.
+    cost = cost.detach().float().contiguous()
+    solve = batched_linear_sum_assignment if 1 <= cost.shape[-1] <= MAX_N else linear_sum_assignment_plain
     with record_function("lap"):
-        cols = batched_linear_sum_assignment(cost.detach().float().contiguous()).long()
+        cols = solve(cost).long()
 
     gt_states_m = take_rows(gt_states, cols)
     gt_valid_m = take_rows(gt_valid, cols)

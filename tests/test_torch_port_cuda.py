@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffusiondrive_torch.models.resnet import ResNetStem
+from diffusiondrive_torch.models.resnet import ResNetStem, _kernel_operands
 from diffusiondrive_torch.ops.attention_fused import (
     attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, fused_attention, fused_attention_bwd)
 from diffusiondrive_torch.ops.conv_fused import (
@@ -26,6 +26,12 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _close(got, want, tol, name):
+    err = (got.float() - want.float()).abs().max().item()
+    limit = tol * max(1.0, want.float().abs().max().item())
+    assert err <= limit, (name, err, limit)
 
 
 @pytest.mark.cuda
@@ -54,10 +60,33 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, tol):
 
 @pytest.mark.cuda
 def test_cuda_stem_with_unsupported_shape_raises(cuda_device):
-    """On the card the eval stem launches the kernel or raises: no plain path."""
+    """On the card the stem's wrapper launches the kernel or raises: no plain path."""
     stem = ResNetStem(5).to(cuda_device).eval()
-    with torch.no_grad(), pytest.raises(ValueError, match="not supported"):
-        stem(torch.zeros(1, 5, 64, 64, device=cuda_device))
+    w, s, b = _kernel_operands(stem, "conv1", "bn1", torch.float32)
+    x = torch.zeros(1, 5, 64, 64, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_stem(x, w, s, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [5, 6])
+def test_cuda_stem_takes_the_module_path_where_the_kernel_does_not_apply(cuda_device, C):
+    """An eval stem with C > 4 (as JAX, by `supports_fused_stem`) runs conv,
+    BN, ReLU and max-pool on the card, launches no stem kernel, and equals
+    the same module on the CPU within 1e-4 (float32, TF32 off)."""
+    torch.manual_seed(C)
+    stem = ResNetStem(C).eval()
+    with torch.no_grad():
+        stem.bn1.running_mean.normal_(0.0, 0.3)
+        stem.bn1.running_var.uniform_(0.7, 1.5)
+    x = torch.randn(2, C, 36, 100, generator=torch.Generator().manual_seed(C))
+    before = fused_stem.launches
+    with torch.no_grad():
+        want = stem(x)
+        got = stem.to(cuda_device)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fused_stem.launches == before
+    _close(got.cpu(), want, 1e-4, f"stem C={C}")
 
 
 @pytest.mark.cuda
@@ -105,6 +134,38 @@ def test_cuda_assignment_equals_plain_version_and_scipy(cuda_device, n, B):
                                    cb[r, cs].sum(dtype=np.float64), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="outside the kernel"):
         batched_linear_sum_assignment(torch.zeros(2, 32, 32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_detection_loss_above_the_kernel_size_takes_the_plain_solver(cuda_device):
+    """n = 40 > 31: the loss solves on the card with the plain solver (no LAP
+    launch), which gives the CPU's assignment exactly; the loss equals the
+    CPU's within 1e-5. Each prediction is a ground-truth box of a
+    permutation plus noise, its logit +-4 by that box's label: one optimum
+    up to swaps among invalid boxes, which leave the loss as it is (with
+    logits near 0 the optimum ties, and the last bit of the card's cost
+    picks another)."""
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.training.losses import agent_detection_loss
+
+    rng = np.random.default_rng(40)
+    B, n = 3, 40
+    costs = torch.from_numpy(rng.normal(size=(B, n, n)).astype(np.float32))
+    torch.testing.assert_close(linear_sum_assignment_plain(costs.to(cuda_device)).cpu(),
+                               linear_sum_assignment_plain(costs), rtol=0, atol=0)
+    gt = rng.normal(0, 10, (B, n, 5)).astype(np.float32)
+    labels, perm = rng.uniform(size=(B, n)) > 0.4, rng.permutation(n)
+    inputs = ({"agent_states": gt, "agent_labels": labels},
+              {"agent_states": (gt[:, perm] + rng.normal(0, 0.5, (B, n, 5))).astype(np.float32),
+               "agent_labels": (np.where(labels[:, perm], 4.0, -4.0) + rng.normal(0, 0.5, (B, n))).astype(np.float32)})
+    cfg = TransfuserConfig(num_bounding_boxes=n)
+    before = batched_linear_sum_assignment.launches
+    got, want = (torch.stack(agent_detection_loss(*({k: torch.from_numpy(v).to(d) for k, v in part.items()}
+                                                    for part in inputs), cfg))
+                 for d in (cuda_device, torch.device("cpu")))
+    torch.cuda.synchronize()
+    assert batched_linear_sum_assignment.launches == before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -157,36 +218,49 @@ def test_cuda_train_step_matches_cpu(cuda_device):
         torch.testing.assert_close(runs[("cuda", f32)]["stats"][k], b, rtol=1e-4, atol=1e-4, msg=k)
 
 
-def _close(got, want, tol, name):
+def _within_2_bf16_ulps(got, want, name):
+    """`chip_smoke.py:check_bf16_ulps`: 2 bf16 ulps (2 * 2^-8) of max |want|."""
     err = (got.float() - want.float()).abs().max().item()
-    limit = tol * max(1.0, want.float().abs().max().item())
+    limit = 2.0 * 2.0 ** -8 * want.float().abs().max().item()
     assert err <= limit, (name, err, limit)
+
+
+def _attention_inputs(B, H, T, D, dtype, masked, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(device, dtype).transpose(1, 2)
+                   for _ in range(4))
+    pdrop = 0.25 if masked else 0.0
+    mask = (dropout_keep_mask(torch.Generator(device).manual_seed(1), (B, H, T, T), pdrop, device)
+            if masked else None)
+    return q, k, v, do, mask, pdrop
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33)])
+@pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33),
+                                     (2, 4, 320, 16), (2, 4, 320, 128)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T, D, masked):
     """The forward and backward kernels against their plain versions at odd
-    shapes the gate takes (T = 8, 24, 504; D = 8, 33, 256), q, k, v and dO
-    read as (B, T, H, D) views, with and without a p = 0.25 keep mask.
-    Tolerances as in `chip_smoke.py`: float32 sums in another order; bf16
-    probabilities and score gradients rounded to bf16 on either side of a
-    last-bit difference."""
-    g = torch.Generator().manual_seed(T * D + masked)
-    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(cuda_device, dtype).transpose(1, 2)
-                   for _ in range(4))
-    pdrop = 0.25 if masked else 0.0
-    mask = (dropout_keep_mask(torch.Generator(cuda_device).manual_seed(1), (B, H, T, T), pdrop,
-                              cuda_device) if masked else None)
+    shapes the gate takes (T = 8, 24, 504; D = 8, 33, 256) and at the
+    fusion blocks' T = 320 with the first and last stage's D (16, 128), q,
+    k, v and dO read as (B, T, H, D) views, with and without a p = 0.25
+    keep mask. bf16 with D <= 128 runs the tensor-core forward, D = 256 and
+    float32 the CUDA-core one. Tolerances as in `chip_smoke.py`: float32
+    sums in another order; bf16 probabilities and score gradients rounded to
+    bf16 on either side of a last-bit difference, and the bf16 forward also
+    within 2 bf16 ulps of max |plain|."""
+    q, k, v, do, mask, pdrop = _attention_inputs(B, H, T, D, dtype, masked, cuda_device, T * D + masked)
     fwd0, bwd0 = fused_attention.launches, fused_attention_bwd.launches
     out = fused_attention(q, k, v, mask, pdrop)
     grads = fused_attention_bwd(q, k, v, mask, do, pdrop)
     torch.cuda.synchronize()
     assert (fused_attention.launches, fused_attention_bwd.launches) == (fwd0 + 1, bwd0 + 1)
     assert out.shape == (B, H, T, D) and out.dtype == dtype
-    _close(out, attention_fwd_plain(q, k, v, mask, pdrop), tol, "out")
+    want = attention_fwd_plain(q, k, v, mask, pdrop)
+    _close(out, want, tol, "out")
+    if dtype == torch.bfloat16:
+        _within_2_bf16_ulps(out, want, "out")
     for name, got, want in zip("dq dk dv".split(), grads, attention_bwd_plain(q, k, v, mask, do, pdrop)):
         _close(got, want, tol, name)
     # through autograd: the Function's backward is the backward kernel
@@ -195,6 +269,24 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
     assert fused_attention_bwd.launches == bwd0 + 2
     for name, leaf, want in zip("dq dk dv".split(), leaves, grads):
         torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dtype, tol):
+    """The backward kernels (left as they were when the bf16 forward moved
+    to the tensor cores) at one fixed fusion-block input, (2, 4, 320, 64)
+    with a keep mask: dq, dk and dv within the plain versions' limits, bf16
+    also within 2 bf16 ulps, and the same bits in a second call."""
+    q, k, v, do, mask, pdrop = _attention_inputs(2, 4, 320, 64, dtype, True, cuda_device, 64)
+    got = fused_attention_bwd(q, k, v, mask, do, pdrop)
+    again = fused_attention_bwd(q, k, v, mask, do, pdrop)
+    torch.cuda.synchronize()
+    for name, g1, g2, want in zip("dq dk dv".split(), got, again, attention_bwd_plain(q, k, v, mask, do, pdrop)):
+        _close(g1, want, tol, name)
+        if dtype == torch.bfloat16:
+            _within_2_bf16_ulps(g1, want, name)
+        torch.testing.assert_close(g1, g2, rtol=0, atol=0, msg=name)
 
 
 @pytest.mark.cuda

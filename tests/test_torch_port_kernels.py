@@ -18,7 +18,7 @@ from diffusiondrive_tpu.ops.conv_fused import fused_conv3x3 as j_fused_conv3x3
 from diffusiondrive_tpu.ops.stem_fused import fused_stem as j_fused_stem
 
 from diffusiondrive_torch.models.resnet import ResNetStage, ResNetStem
-from diffusiondrive_torch.models.resnet import BasicBlock
+from diffusiondrive_torch.models.resnet import BasicBlock, _kernel_operands
 from diffusiondrive_torch.ops.conv_fused import bn_eval_affine, conv3x3_plain, fused_conv3x3, to_hwio
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain, supports_fused_stem
 from diffusiondrive_torch.utils.port_jax import load_jax_variables
@@ -150,11 +150,39 @@ def test_gates_and_bn_fold():
     (BasicBlock(64, 64), torch.empty(1, 64, 8, 8), RuntimeError),  # taken: no kernel for meta
 ])
 def test_eval_modules_reach_the_wrapper_off_the_cpu(module, x, error):
-    """In eval mode the stem and the layer-1 block call the wrapper for any
-    input: off the CPU it launches the kernel or raises, with no plain path."""
+    """In eval mode the layer-1 block, and the stem for every input that
+    `supports_fused_stem` takes, call the wrapper: off the CPU it launches
+    the kernel or raises (`error`), with no plain path. A stem input the
+    kernel does not take goes the module path, as JAX's stem does, and the
+    wrapper itself still raises `error` for it."""
     module = module.to("meta").eval()
-    with torch.no_grad(), pytest.raises(error):
-        module(x.to("meta"))
+    x = x.to("meta")
+    if isinstance(module, BasicBlock) or supports_fused_stem(x):
+        with torch.no_grad(), pytest.raises(error):
+            module(x)
+        return
+    with torch.no_grad():
+        out = module(x)
+    assert out.device.type == "meta" and out.shape == (1, 64, -(-x.shape[2] // 4), -(-x.shape[3] // 4))
+    w, s, b = _kernel_operands(module, "conv1", "bn1", torch.float32)
+    with pytest.raises(error, match="shape"):
+        fused_stem(x.contiguous(memory_format=torch.channels_last), w, s, b)
+
+
+def test_resnet_stem_takes_the_module_path_where_jax_does():
+    """C=6 (a ground-plane lidar of 3 sweeps, `TransfuserConfig(
+    use_ground_plane=True, lidar_seq_len=3)`): `supports_fused_stem` fails,
+    so both packages' eval stems run conv, BN, ReLU and max-pool; equal
+    within 1e-4."""
+    x = np.random.default_rng(6).normal(size=(2, 32, 64, 6)).astype(np.float32)
+    assert not supports_fused_stem(_nchw(x))
+    jstem = JResNetStem(fused_mode="interpret")
+    variables = _randomize_bn(jax.jit(jstem.init)(jax.random.PRNGKey(1), x), 7)
+    want = np.asarray(jstem.apply(variables, x))
+    stem = load_jax_variables(ResNetStem(6), variables).eval()
+    with torch.no_grad():
+        got = stem(_nchw(x))
+    np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
 
 
 def test_kernel_operands_follow_parameter_updates():

@@ -67,3 +67,44 @@ def test_assignment_off_the_cpu_reaches_the_kernel_or_raises():
         batched_linear_sum_assignment(torch.empty(2, 32, 32, device="meta"))
     with pytest.raises(TypeError, match="float32"):
         batched_linear_sum_assignment(torch.empty(2, 30, 30, device="meta", dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n", [30, 40])
+def test_detection_loss_takes_the_kernel_only_where_jax_does(n, monkeypatch):
+    """JAX's `_lsa_local` takes its kernel for 1 <= n <= 31 and the XLA
+    solver above (`num_bounding_boxes=40` trains in JAX); the port's loss
+    calls the kernel's wrapper only for those n and the plain solver above,
+    and equals the JAX loss at both n. Each prediction is a ground-truth
+    box of a permutation plus noise, its logit +-4 by that box's label: one
+    optimum up to swaps among invalid boxes, which leave the loss as it is."""
+    from diffusiondrive_tpu.models.config import TransfuserConfig as JConfig
+    from diffusiondrive_tpu.training import losses as jlosses
+
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.training import losses as plosses
+
+    rng = np.random.default_rng(n)
+    B = 2
+    gt = rng.normal(0, 10, (B, n, 5)).astype(np.float32)
+    perm = np.stack([rng.permutation(n) for _ in range(B)])
+    pred = (np.take_along_axis(gt, perm[..., None], 1) + rng.normal(0, 0.5, (B, n, 5))).astype(np.float32)
+    labels = rng.uniform(size=(B, n)) > 0.4
+    logits = (np.where(np.take_along_axis(labels, perm, 1), 4.0, -4.0)
+              + rng.normal(0, 0.5, (B, n))).astype(np.float32)
+    calls = []
+
+    def spy(cost):
+        calls.append(cost.shape)
+        return batched_linear_sum_assignment(cost)
+
+    monkeypatch.setattr(plosses, "batched_linear_sum_assignment", spy)
+    got = plosses.agent_detection_loss(
+        {"agent_states": torch.from_numpy(gt), "agent_labels": torch.from_numpy(labels)},
+        {"agent_states": torch.from_numpy(pred), "agent_labels": torch.from_numpy(logits)},
+        TransfuserConfig(num_bounding_boxes=n))
+    want = jlosses.agent_detection_loss(
+        {"agent_states": jnp.asarray(gt), "agent_labels": jnp.asarray(labels)},
+        {"agent_states": jnp.asarray(pred), "agent_labels": jnp.asarray(logits)},
+        JConfig(num_bounding_boxes=n))
+    assert calls == ([(B, n, n)] if n <= 31 else [])
+    np.testing.assert_allclose(torch.stack(got).numpy(), np.asarray(jnp.stack(want)), rtol=1e-6, atol=1e-6)
