@@ -10,22 +10,29 @@ line per phase, then one JSON line per kernel summary, then the result:
                with nvcc for sm_90a (one nvcc per source, in parallel) into
                `diffusiondrive_torch/_build/`; prints seconds and ptxas stats,
                and fails unless ptxas reports 0 spill bytes for each of the
-               four tensor-core attention forwards (`attn_fwd_mma_kernel`).
+               four instantiations (DP = 16, 32, 64, 128) of every
+               tensor-core attention kernel (`MMA_KERNELS`: the forward and
+               the backward's two launches).
 3. ``kernel``  each kernel at its main-path shapes (B=16; the conv kernels in
                bf16 and f32) against its plain PyTorch version (max abs error
-               and the tolerance; the lidar splat must be exact), timed with
-               CUDA events beside the plain version, a library yardstick
-               (`library_ms`, never used by the port) and the card's bound
-               for the same work (`bound_ms`). ``kernel attention_fwd`` /
-               ``attention_bwd`` (the fused attention at the fusion blocks'
-               B=64, H=4, T=320 and each stage's D = 16, 32, 64, 128, bf16
-               and f32, without and with a p=0.1 keep mask; `path` names the
-               forward kernel that ran, "mma" (bf16, tensor cores) or
-               "cuda_core" (f32); library:
-               `scaled_dot_product_attention` unmasked) and ``kernel
-               conv3x3_train`` (its forward and input gradient at the B=64
-               layer-1 shapes in bf16, and one autograd backward against the
-               plain version's; library: cuDNN `conv2d` and `conv2d_input`).
+               and the tolerance; the lidar splat must be exact), timed beside
+               the plain version, a library yardstick (`library_ms`, never
+               used by the port) and the card's bound for the same work
+               (`bound_ms`). Every time in a kernel row comes from one timer,
+               `time_rows`: the median of 3 repeats, each the device time of
+               launches queued behind a spin kernel (`queued_ms`: not the
+               host's launch rate), the three beside it as `*_runs`.
+               ``kernel attention_fwd`` / ``attention_bwd`` (the fused
+               attention at the fusion blocks' B=64, H=4, T=320 and each
+               stage's D = 16, 32, 64, 128, bf16 and f32, without and with a
+               p=0.1 keep mask; `path` names the kernel that ran, "mma"
+               (bf16, tensor cores) or "cuda_core" (f32); library:
+               `scaled_dot_product_attention` unmasked with its backend
+               pinned, `SDPA_BACKEND`; one untimed pass over the first row
+               first) and ``kernel conv3x3_train`` (its forward and input
+               gradient at the B=64 layer-1 shapes in bf16, and one autograd
+               backward against the plain version's; library: cuDNN `conv2d`
+               and `conv2d_input`).
 4. ``main_path`` the full-width planner forward (default TransfuserConfig,
                seeded random weights): (a) float32 at B=1 on the card against
                the same model on the CPU; (b) bf16 at B=1 and B=16, finite
@@ -107,6 +114,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
@@ -155,18 +163,44 @@ def log(phase: str, **fields) -> None:
     print(phase + ": " + json.dumps(fields), flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of `fn` over `iters` launches, by CUDA events."""
+SPIN_CYCLES = 20_000_000   # ~10 ms of `torch.cuda._sleep` at the H100's boost clock
+
+
+def queued_ms(fn, iters: int, warmup: int):
+    """(mean device time of `fn` over `iters` launches by CUDA events, whether
+    the host fell behind). The launches are queued behind a ~10 ms spin
+    kernel, so a call whose host side outlasts its device work (SDPA through
+    autograd, a plain version of many small launches) is timed by its device
+    work, and the clocks are up when the timed launches start. `host_behind`:
+    the device reached the first timed launch before the host had queued the
+    last one (a call that synchronises with the host always does)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_behind = start.query()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_behind
+
+
+def time_rows(fns: dict, iters: int = 10, warmup: int = 3) -> dict:
+    """The one timer of every kernel row: each of `fns` (name -> callable)
+    timed as the median of 3 repeats of `queued_ms`; the three repeats beside
+    it as `<name>_runs`, and under `host_behind` the names whose host fell
+    behind in any repeat."""
+    out, behind = {}, []
+    for name, fn in fns.items():
+        runs, flags = zip(*(queued_ms(fn, iters, warmup) for _ in range(3)))
+        out[name], out[name + "_runs"] = sorted(runs)[1], list(runs)
+        if any(flags):
+            behind.append(name)
+    out["host_behind"] = behind
+    return out
 
 
 def bound_ms(flops: float, nbytes: float, dtype: torch.dtype):
@@ -211,20 +245,29 @@ def phase_device() -> str:
     return out
 
 
-def ptxas_spills(text: str, kernel: str) -> dict:
-    """{mangled function: [spill store bytes, spill load bytes]} for every
-    function whose name contains `kernel`, from an nvcc `-Xptxas -v` log."""
-    out, name = {}, None
+# the tensor-core attention kernels of `csrc/attention_fused.cu`, each built for DP = 16, 32, 64, 128
+MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")
+
+
+def ptxas_stats(text: str, kernel: str) -> dict:
+    """{"<DP>": [registers, spill store bytes, spill load bytes]} for every
+    instantiation of `kernel` (template argument DP), from an nvcc
+    `-Xptxas -v` log."""
+    out, key = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             name = m.group(1)
+            dp = re.search(r"ILi(\d+)E", name)
+            key = dp.group(1) if kernel in name and dp else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and name is not None:
-            if kernel in name:
-                out[name] = [int(m.group(1)), int(m.group(2))]
-            name = None
+        if m and key is not None:
+            out[key] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key is not None and key in out:
+            out[key][0] = int(m.group(1))
+            key = None
     return out
 
 
@@ -232,17 +275,20 @@ def phase_build() -> dict:
     from diffusiondrive_torch.ops import _build
 
     t0 = time.time()
-    logs = _build.build_all()
+    built = sorted(_build.build_all())
     missing = [n for n in _build.kernel_names() if not _build._target(n).exists()]
     if missing:
         raise RuntimeError(f"kernel libraries not built: {missing}")
-    stats = [ln.strip() for text in logs.values() for ln in text.splitlines()
-             if "registers" in ln or "spill" in ln]
-    mma = ptxas_spills(logs["attention_fused"], "attn_fwd_mma_kernel") if "attention_fused" in logs else None
-    log("build", seconds=round(time.time() - t0, 3), built=sorted(logs),
-        kernels=_build.kernel_names(), ptxas=stats[:24], attn_fwd_mma_spills=mma)
-    if mma is not None and (len(mma) != 4 or any(sum(v) for v in mma.values())):
-        raise AssertionError(f"attn_fwd_mma_kernel: want 4 instantiations with 0 spill bytes, got {mma}")
+    logs = {n: _build.build_log(n) for n in _build.kernel_names()}  # this build's or the cached one's
+    stats = [ln.strip() for name, text in logs.items() if name != "attention_fused"
+             for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+    mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
+    log("build", seconds=round(time.time() - t0, 3), built=built,
+        kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma)
+    bad = {k: v for k, v in mma.items() if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
+    if bad:
+        raise AssertionError(f"tensor-core attention kernels: want 4 instantiations each with 0 spill "
+                             f"bytes, got {bad}")
     return logs
 
 
@@ -271,10 +317,10 @@ def phase_kernels(dev) -> dict:
             nbytes = esize * (B * H * W * C + B * (H // 4) * (W // 4) * 64 + 49 * C * 64) + 2 * 64 * 4
             bms, by = bound_ms(flops, nbytes, dtype)
             row = dict(shape=list(shape), dtype=str(dtype), max_abs_err=err, limit=limit,
-                       kernel_ms=time_ms(lambda: fused_stem(x, w, s, b)),
-                       plain_ms=time_ms(lambda: stem_plain(x, w, s, b)),
-                       library_ms=time_ms(lambda: F.max_pool2d(
-                           torch.relu_(F.conv2d(x, wf, bf, stride=2, padding=3)), 3, 2, 1)),
+                       **time_rows({"kernel_ms": lambda: fused_stem(x, w, s, b),
+                                    "plain_ms": lambda: stem_plain(x, w, s, b),
+                                    "library_ms": lambda: F.max_pool2d(
+                                        torch.relu_(F.conv2d(x, wf, bf, stride=2, padding=3)), 3, 2, 1)}),
                        bound_ms=bms, bound_by=by)
             log(f"kernel stem {label}", **row)
             summary[("stem", label, dtype)] = row
@@ -305,9 +351,10 @@ def phase_kernels(dev) -> dict:
                     lib = lambda: torch.relu_(F.conv2d(x, wf, bf, padding=1).add_(r))  # noqa: E731
                 row = dict(shape=list(shape), dtype=str(dtype), variant=variant, max_abs_err=err,
                            limit=limit,
-                           kernel_ms=time_ms(lambda: fused_conv3x3(x, w, s, b, res, relu=True)),
-                           plain_ms=time_ms(lambda: conv3x3_plain(x, w, s, b, res, relu=True)),
-                           library_ms=time_ms(lib), bound_ms=bms, bound_by=by)
+                           **time_rows({"kernel_ms": lambda: fused_conv3x3(x, w, s, b, res, relu=True),
+                                        "plain_ms": lambda: conv3x3_plain(x, w, s, b, res, relu=True),
+                                        "library_ms": lib}),
+                           bound_ms=bms, bound_by=by)
                 log(f"kernel conv3x3 {label} {variant}", **row)
                 summary[("conv3x3", label, variant, dtype)] = row
 
@@ -357,9 +404,9 @@ def phase_lidar_splat(dev) -> dict:
         bms, by_what = bound_ms(0.0, nbytes, torch.float32)
         row = dict(shape=[B, N], bins=bins, points_counted=int(ok.sum().item()),
                    hottest_bin=int(want.max().item()), max_abs_err=err,
-                   kernel_ms=time_ms(lambda: histogram2d(bx, by, bins)),
-                   plain_ms=time_ms(lambda: histogram2d_plain(bx, by, bins)),
-                   library_ms=time_ms(lambda: buf.scatter_add_(0, flat, ones)),
+                   **time_rows({"kernel_ms": lambda: histogram2d(bx, by, bins),
+                                "plain_ms": lambda: histogram2d_plain(bx, by, bins),
+                                "library_ms": lambda: buf.scatter_add_(0, flat, ones)}),
                    bound_ms=bms, bound_by=by_what)
         log(f"kernel lidar_splat b{B}", **row)
         summary[("lidar_splat", B)] = row
@@ -369,6 +416,8 @@ def phase_lidar_splat(dev) -> dict:
 ATTN_BHT = (64, 4, 320)        # batch, heads, tokens of the fusion blocks at the CLI's batch
 ATTN_D = (16, 32, 64, 128)     # head widths of fusion stages 1-4 (C / 4 for C = 64..512)
 CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # layer 1 at B=64, NHWC
+# the SDPA yardstick's backend, pinned: what SDPA picks on the H100 for the attention rows' shapes
+SDPA_BACKEND = {torch.bfloat16: SDPBackend.CUDNN_ATTENTION, torch.float32: SDPBackend.EFFICIENT_ATTENTION}
 
 
 def phase_attention(dev) -> dict:
@@ -379,27 +428,48 @@ def phase_attention(dev) -> dict:
     q, k, v and dO as (B, H, T, D) views of (B, T, H, D) memory, as the
     model hands them over. library_ms: `F.scaled_dot_product_attention`
     unmasked (forward; forward and backward through autograd), never called
-    by the port. Bound: the forward's 4·B·H·T²·D flops and its q, k, v, o
-    (and mask) bytes; the backward's 10·B·H·T²·D flops (the five products
-    of a recomputing backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
+    by the port, its backend pinned (`SDPA_BACKEND`). Times: `time_rows`,
+    after one untimed pass over the first row.
+    Bound: the forward's 4·B·H·T²·D flops and its q, k, v, o (and mask)
+    bytes; the backward's 10·B·H·T²·D flops (the five products of a
+    recomputing backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
     from diffusiondrive_torch.ops.attention_fused import (
-        attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, forward_kernel, fused_attention,
-        fused_attention_bwd)
+        attention_bwd_plain, attention_fwd_plain, backward_kernel, dropout_keep_mask, forward_kernel,
+        fused_attention, fused_attention_bwd)
 
     B, H, T = ATTN_BHT
     gen, mask_gen = torch.Generator().manual_seed(4), torch.Generator(device=dev)
-    summary = {}
+    summary, warm = {}, False
     for D in ATTN_D:
         base = [torch.randn(B, T, H, D, generator=gen) for _ in range(4)]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (t.to(dev, dtype).transpose(1, 2) for t in base)
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             esize = q.element_size()
+            backend = SDPA_BACKEND[dtype]
+
+            def lib_fwd():
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(q, k, v)
+
+            def lib_bwd():  # the forward's backend fixes the backward's
+                with sdpa_kernel(backend):
+                    return torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do)
+
             for pdrop in (0.0, 0.1):
                 mask = dropout_keep_mask(mask_gen.manual_seed(D), (B, H, T, T), pdrop, dev) if pdrop else None
                 variant = "masked" if pdrop else "no_mask"
                 mbytes = B * H * T * T if pdrop else 0
                 tag = f"D={D} {variant} {dtype}"
+                fwd_fns = {"kernel_ms": lambda: fused_attention(q, k, v, mask, pdrop),
+                           "plain_ms": lambda: attention_fwd_plain(q, k, v, mask, pdrop), "library_ms": lib_fwd}
+                bwd_fns = {"kernel_ms": lambda: fused_attention_bwd(q, k, v, mask, do, pdrop),
+                           "plain_ms": lambda: attention_bwd_plain(q, k, v, mask, do, pdrop),
+                           "library_ms": lib_bwd}
+                if not warm:  # one untimed pass over the first row: clocks, caches and handles settle
+                    for fn in (*fwd_fns.values(), *bwd_fns.values()):
+                        queued_ms(fn, 10, 3)
+                    warm = True
                 got, want = fused_attention(q, k, v, mask, pdrop), attention_fwd_plain(q, k, v, mask, pdrop)
                 torch.cuda.synchronize()
                 err, limit = check_close(f"attention_fwd {tag}", got, want, TOL[dtype])
@@ -407,30 +477,26 @@ def phase_attention(dev) -> dict:
                 bms, by = bound_ms(4.0 * B * H * T * T * D, esize * 4.0 * B * H * T * D + mbytes, dtype)
                 row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
                            path=forward_kernel(dtype, D), max_abs_err=err, limit=limit, ulp_limit=ulps,
-                           kernel_ms=time_ms(lambda: fused_attention(q, k, v, mask, pdrop), iters=10),
-                           plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, mask, pdrop), iters=10),
-                           library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
-                           bound_ms=bms, bound_by=by)
+                           **time_rows(fwd_fns), library_backend=backend.name.lower(), bound_ms=bms, bound_by=by)
                 log(f"kernel attention_fwd d{D} {variant}", **row)
                 summary[("attention_fwd", D, variant, dtype)] = row
 
                 got = fused_attention_bwd(q, k, v, mask, do, pdrop)
+                again = fused_attention_bwd(q, k, v, mask, do, pdrop)
                 want = attention_bwd_plain(q, k, v, mask, do, pdrop)
                 torch.cuda.synchronize()
                 errs = {name: check_close(f"attention_bwd {name} {tag}", g, w, TOL[dtype])
                         for name, g, w in zip(("dq", "dk", "dv"), got, want)}
                 ulps = {name: check_bf16_ulps(f"attention_bwd {name} {tag}", g, w)
                         for name, g, w in zip(("dq", "dk", "dv"), got, want)} if dtype == torch.bfloat16 else None
-                del got, want
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"attention_bwd {tag}: two calls gave different bits")
+                del got, again, want
                 bms, by = bound_ms(10.0 * B * H * T * T * D, esize * 7.0 * B * H * T * D + mbytes, dtype)
                 row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
-                           max_abs_err=max(e for e, _ in errs.values()),
+                           path=backward_kernel(dtype, D), max_abs_err=max(e for e, _ in errs.values()),
                            errors={n: e for n, (e, _) in errs.items()}, limits={n: l for n, (_, l) in errs.items()},
-                           ulp_limits=ulps,
-                           kernel_ms=time_ms(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop), iters=10),
-                           plain_ms=time_ms(lambda: attention_bwd_plain(q, k, v, mask, do, pdrop), iters=10),
-                           library_ms=time_ms(lambda: torch.autograd.grad(
-                               F.scaled_dot_product_attention(*leaves), leaves, do), iters=10),
+                           ulp_limits=ulps, **time_rows(bwd_fns), library_backend=backend.name.lower(),
                            bound_ms=bms, bound_by=by)
                 log(f"kernel attention_bwd d{D} {variant}", **row)
                 summary[("attention_bwd", D, variant, dtype)] = row
@@ -477,8 +543,9 @@ def phase_conv3x3_train(dev) -> dict:
             torch.cuda.synchronize()
             err, limit = check_close(f"conv3x3_train {label} {part}", got, want, TOL[dtype])
             row = dict(shape=list(shape), dtype=str(dtype), part=part, max_abs_err=err, limit=limit,
-                       autograd_max_abs_err=auto_err, kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
-                       library_ms=time_ms(lib), bound_ms=bms, bound_by=by)
+                       autograd_max_abs_err=auto_err,
+                       **time_rows({"kernel_ms": kern, "plain_ms": plain, "library_ms": lib}),
+                       bound_ms=bms, bound_by=by)
             log(f"kernel conv3x3_train {label} {part}", **row)
             summary[("conv3x3_train", label, part)] = row
     return summary
@@ -733,11 +800,12 @@ def phase_lap(dev, build_logs: dict) -> dict:
             scipy_host()
         library_ms = (time.perf_counter() - t0) / 10 * 1e3
         bms, by = bound_ms(0.0, 4.0 * B * n * n + 4.0 * B * n, torch.float32)
+        times = time_rows({"kernel_ms": lambda: batched_linear_sum_assignment(c)})
+        plain = time_rows({"plain_ms": lambda: linear_sum_assignment_plain(c)}, iters=1, warmup=1)
+        times["host_behind"] += plain.pop("host_behind")
         row = dict(shape=[B, n, n], ties_in=f"{B - B // 2} of {B} problems", max_abs_err=0, host_syncs=0,
                    scipy_max_rel_cost_gap=worst,
-                   kernel_ms=time_ms(lambda: batched_linear_sum_assignment(c)),
-                   plain_ms=time_ms(lambda: linear_sum_assignment_plain(c), iters=3, warmup=1),
-                   library_ms=library_ms, library="scipy.optimize.linear_sum_assignment on the host, "
+                   **times, **plain, library_ms=library_ms, library="scipy.optimize.linear_sum_assignment on the host, "
                    "with the device-to-host copy (not a PyTorch call)",
                    bound_ms=bms, bound_by=by, dependent_warp_argmins=n * (n + 1), ptxas=ptxas)
         log(f"kernel lap b{B}", **row)
@@ -1042,8 +1110,9 @@ def _stage_sum(summary: dict, kernel: str) -> dict:
     rows = [summary[(kernel, D, "masked", torch.bfloat16)] for D in ATTN_D]
     out = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
     out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    backends = sorted({r["library_backend"] for r in rows})
     out["shape"] = (f"bf16 (B, H, T) = {ATTN_BHT}, p=0.1 mask, summed over D = {ATTN_D}; "
-                    "library_ms: scaled_dot_product_attention unmasked")
+                    f"library_ms: scaled_dot_product_attention unmasked ({'/'.join(backends)})")
     return out
 
 

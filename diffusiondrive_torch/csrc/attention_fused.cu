@@ -39,6 +39,28 @@
 //   scores in shared memory. TF32 products would break float32's 1e-4
 //   limit against the plain version.
 //
+// Two backward designs, each two launches with the per-row statistics in
+// a (3, B*H*T) f32 scratch between them; dq is owned by query tiles, dk and
+// dv by key tiles, so no atomics and the same bits in every run:
+// - bf16 with D <= 128: `attn_bwd_dq_mma_kernel` then
+//   `attn_bwd_dkdv_mma_kernel`, the forward's tensor-core machinery
+//   (ldmatrix, mma.sync, C fragments repacked as A fragments, cp.async
+//   tiles). The CUDA-core backward below ran 146x its bound summed over the
+//   fusion stages, slower than its own plain version. JAX's rounding points
+//   hold: p and dp = dO V^T in f32, delta = sum_j dp p with the unmasked
+//   p, pd and ds rounded to bf16 before their products (never
+//   FlashAttention's delta = rowsum(dO * O): the output is not kept, and
+//   its rounding would move ds). Launch 1 (64 query rows a block): pass 1
+//   over K, V and mask tiles keeps each row's max, sum and dp-weighted sum
+//   online; pass 2 recomputes s and dp and accumulates dq = ds K. Launch 2
+//   (64 keys a block): over query tiles, s^T = K Q^T and dp^T = V dO^T with
+//   the keys as rows, so pd^T and ds^T leave the C fragments as the A
+//   fragments of dv += pd^T dO and dk += ds^T Q; p^T from launch 1's
+//   statistics and the same exp. Ten tile products a score, against the
+//   forward's three; merging launch 1's passes would hold p and dp for the
+//   block in shared memory (160 KB at T = 320, too much at T = 512).
+// - float32, and bf16 with 128 < D <= 256: the CUDA-core kernels below.
+//
 // Design of the CUDA-core kernels: the TPU kernel held all heads of a
 // batch row with whole (T, T) f32 tiles in VMEM; a (320, 320) f32 score
 // matrix is 400 KB, above the 227 KB of shared memory a block may use, so
@@ -65,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -98,7 +121,7 @@ struct Args {
   View<const T> q, k, v, dout;
   View<T> o, dq, dk, dv;
   const unsigned char* mask;  // (B, H, T, T) keep mask or null
-  float* stats;               // (3, B*H*T): row max, row sum, sum_j dp*p
+  float* stats;               // (3, B*H*T): row max, row sum (mma: max log2 e, 1 / sum), sum_j dp*p
   int B, H, Tn, D;  // Tn: tokens
   float scale, inv_keep;
 };
@@ -494,7 +517,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const View<const bf16>& m, 
 }
 
 // The (64 query rows) x (64 keys) block of the keep mask at (i0, j0) of
-// head row `bh` into [64][MASK_LD] bytes; outside T x T zero.
+// head row `bh` into [64][LDM] bytes; outside T x T zero.
+template <int LDM = MASK_LD>
 __device__ __forceinline__ void load_mask(unsigned char* dst, const unsigned char* mask, int bh,
                                           int i0, int j0, int T_, bool vec) {
   const size_t base = (size_t)bh * T_ * T_;
@@ -503,13 +527,13 @@ __device__ __forceinline__ void load_mask(unsigned char* dst, const unsigned cha
     for (int it = 0; it < MQ * (MK / 8) / MNT; ++it) {
       const int e = threadIdx.x + it * MNT, r = e / (MK / 8), c = (e - r * (MK / 8)) * 8;
       const bool ok = i0 + r < T_ && j0 + c < T_;  // T % 8 == 0: a chunk is whole or out
-      cp_async8(smem_u32(dst + r * MASK_LD + c), ok ? mask + base + (size_t)(i0 + r) * T_ + j0 + c : mask,
+      cp_async8(smem_u32(dst + r * LDM + c), ok ? mask + base + (size_t)(i0 + r) * T_ + j0 + c : mask,
                 ok ? 8 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < MQ * MK; e += MNT) {
       const int r = e / MK, c = e - r * MK;
-      dst[r * MASK_LD + c] = i0 + r < T_ && j0 + c < T_ ? mask[base + (size_t)(i0 + r) * T_ + j0 + c] : 0;
+      dst[r * LDM + c] = i0 + r < T_ && j0 + c < T_ ? mask[base + (size_t)(i0 + r) * T_ + j0 + c] : 0;
     }
   }
 }
@@ -712,6 +736,365 @@ __global__ void __launch_bounds__(MNT) attn_fwd_mma_kernel(Args<bf16> a, int fla
   }
 }
 
+// ---- bf16 backward on the tensor cores ----
+
+// Mask row stride of the backward (bytes): two blocks of either launch fit
+// an SM at DP = 128, and the row-pair reads of launch 1 and the column
+// reads of launch 2 both hit distinct banks across a warp.
+constexpr int MASK_LDB = 72;
+
+// acc = A B^T in the mma C layout (16 x NB) for the warp's 16 rows of `a`
+// and rows [0, NB) of `bt`, both [rows][DP + 8] bf16 tiles in shared
+// memory. The A fragments are read from shared memory at each k16 step,
+// which keeps them out of the registers the accumulators need.
+template <int DP, int NB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB / 8][4], const bf16* a, const bf16* bt) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31;
+  // A (as the forward's Q fragments): rows +0..7 / d +0..7, rows +8..15 / d +0..7, rows +0..7 / d +8..15, ...
+  const int ar = (lane & 7) + (((lane >> 3) & 1) << 3), ac = (lane >> 4) << 3;
+  // B (as the forward's K tile): rows +0..7 / d +0..7, rows +0..7 / d +8..15, rows +8..15 / d +0..7, ...
+  const int br = (lane & 7) + ((lane >> 4) << 3), bc = ((lane >> 3) & 1) << 3;
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, smem_u32(a + ar * LD + kk * 16 + ac));
+#pragma unroll
+    for (int np = 0; np < NB / 16; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, smem_u32(bt + (np * 16 + br) * LD + kk * 16 + bc));
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x DP) += P M: P as KS k16 steps of A fragments, M the rows
+// [0, 16 KS) of a [rows][DP + 8] tile, read by ldmatrix.trans.
+template <int DP, int KS>
+__device__ __forceinline__ void mma_pm(float (&acc)[DP / 8][4], const uint32_t (&pa)[KS][4], const bf16* mt) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31;
+  const int vr = (lane & 7) + (((lane >> 3) & 1) << 3), vc = (lane >> 4) << 3;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < DP / 16; ++dp) {
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, smem_u32(mt + (kk * 16 + vr) * LD + dp * 16 + vc));
+      mma_bf16(acc[2 * dp], pa[kk], vb[0], vb[1]);
+      mma_bf16(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+    }
+}
+
+// C fragments of NC n8 tiles, rounded to bf16, as the A fragments of NC / 2
+// k16 steps (the C layout of n8 tiles 2kk, 2kk + 1 is the A layout of step kk).
+template <int NC>
+__device__ __forceinline__ void c_to_a(uint32_t (&pa)[NC / 2][4], const float (&c)[NC][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NC / 2; ++kk) {
+    pa[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    pa[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    pa[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// x = keep ? x / (1 - p) : 0 on a 16 x 64 C-layout tile whose rows are the
+// mask tile's rows; `mrow` points at the thread's row g, column 2 (lane % 4).
+// As x times a selected factor: the same values for finite x (a dropped
+// entry becomes a signed zero), and no branch (the conditional product
+// compiled to divergent branches and made the masked backward 1.2-1.6x
+// the unmasked one).
+__device__ __forceinline__ void apply_mask(float (&x)[MK / 8][4], const unsigned char* mrow, float inv_keep) {
+#pragma unroll
+  for (int n = 0; n < MK / 8; ++n) {
+    const uint32_t keep[2] = {*reinterpret_cast<const uint16_t*>(mrow + n * 8),
+                              *reinterpret_cast<const uint16_t*>(mrow + 8 * MASK_LDB + n * 8)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[n][e] = __fmul_rn(x[n][e], (keep[e >> 1] >> (8 * (e & 1))) & 0xffu ? inv_keep : 0.f);
+  }
+}
+
+// The warp's 16 rows of a 16 x DP accumulator to rows r0 + (0..15) of `out`
+// (rows past T and columns past D skipped); bf16x2 stores with VEC_OUT.
+template <int DP>
+__device__ __forceinline__ void store_acc(const View<bf16>& out, const float (&acc)[DP / 8][4], int b, int h,
+                                          int r0, int T_, int D, bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= T_) continue;
+    bf16* orow = out.row(b, h, i);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = n * 8 + 2 * qd;
+      if (c >= D) continue;
+      if (vec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      } else {
+        orow[c] = __float2bfloat16(acc[n][2 * r]);
+        if (c + 1 < D) orow[c + 1] = __float2bfloat16(acc[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Launch 1 of the bf16 backward, per 64 query rows (16 a warp): pass 1 over
+// K, V and mask tiles keeps each row's running max, sum of exp(s - max) and
+// sum of dp exp(s - max) (the last rescaled with the sum, so delta =
+// sum_j dp p comes out of the same pass); pass 2 recomputes s and dp, forms
+// ds = (p (dp - delta)) scale rounded to bf16 in the C fragments and
+// accumulates dq = ds K. Writes (max log2 e, 1 / sum, delta) per row to
+// `stats` for launch 2.
+template <int DP>
+__global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [MQ][LD]
+  bf16* dos = qs + MQ * LD;                      // [MQ][LD]
+  bf16* ks = dos + MQ * LD;                      // [NS][MK][LD]
+  bf16* vs = ks + NS * MK * LD;                  // [NS][MK][LD]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(vs + NS * MK * LD);  // [NS][MQ][MASK_LDB]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nkt = (T_ + MK - 1) / MK, stages = 2 * nkt;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: K, V and mask tile t % nkt (pass 1 for t < nkt, then pass 2).
+  auto issue = [&](int t) {
+    if (t < stages) {
+      const int buf = t % NS, j0 = (t % nkt) * MK;
+      load_rows<DP>(ks + buf * MK * LD, a.k, b, h, j0, T_, D, vec);
+      load_rows<DP>(vs + buf * MK * LD, a.v, b, h, j0, T_, D, vec);
+      if (a.mask) load_mask<MASK_LDB>(ms + buf * MQ * MASK_LDB, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DP>(qs, a.q, b, h, i0, T_, D, vec);
+  load_rows<DP>(dos, a.dout, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  cp_async_wait<NS - 1>();
+  __syncthreads();
+  uint32_t qf[DP / 16][4];  // the warp's 16 Q rows as A fragments (dO's are read per product)
+  {
+    const int qr = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), qc = (lane >> 4) << 3;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], smem_u32(qs + qr * LD + kk * 16 + qc));
+  }
+  const bf16* dor = dos + warp * 16 * LD;
+  const int mrow = (warp * 16 + g) * MASK_LDB + 2 * qd;
+  float mx[2], l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+
+  // Pass 1: online max, sum and dp-weighted sum of exp(s - max).
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MK / 8][4], dp[MK / 8][4];
+    tile_scores<DP>(s, qf, ks + buf * MK * LD, t * MK, T_, a.scale);
+    mma_abt<DP, MK>(dp, dor, vs + buf * MK * LD);
+    if (a.mask) apply_mask(dp, ms + buf * MQ * MASK_LDB + mrow, a.inv_keep);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < MK / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E;
+      float sum = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = exp_shifted(s[n][2 * r + c], ml);
+          sum += e;
+          dsum = fmaf(dp[n][2 * r + c], e, dsum);
+        }
+      const float corr = exp_shifted(mx[r], ml);  // the first tile: exp(-inf) = 0
+      l[r] = l[r] * corr + sum;
+      dl[r] = dl[r] * corr + dsum;
+      mx[r] = m;
+    }
+    __syncthreads();
+  }
+  float mxl[2], inv_l[2], delta[2];
+  const size_t N = (size_t)a.B * a.H * T_;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    inv_l[r] = 1.f / lsum;
+    mxl[r] = mx[r] * LOG2E;
+    delta[r] = quad_sum(dl[r]) / lsum;
+    const int i = i0 + warp * 16 + g + 8 * r;
+    if (qd == 0 && i < T_) {
+      const size_t row = (size_t)bh * T_ + i;
+      a.stats[row] = mxl[r];
+      a.stats[N + row] = inv_l[r];
+      a.stats[2 * N + row] = delta[r];
+    }
+  }
+
+  // Pass 2: ds in the C fragments, rounded to bf16 as A fragments, times K.
+  float dq[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  for (int t = nkt; t < stages; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MK / 8][4], dp[MK / 8][4];
+    tile_scores<DP>(s, qf, ks + buf * MK * LD, (t - nkt) * MK, T_, a.scale);
+    mma_abt<DP, MK>(dp, dor, vs + buf * MK * LD);
+    if (a.mask) apply_mask(dp, ms + buf * MQ * MASK_LDB + mrow, a.inv_keep);
+#pragma unroll
+    for (int n = 0; n < MK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fmul_rn(exp_shifted(s[n][e], mxl[r]), inv_l[r]);
+        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[r])), a.scale);
+      }
+    uint32_t da[MK / 16][4];
+    c_to_a(da, s);
+    mma_pm<DP, MK / 16>(dq, da, ks + buf * MK * LD);
+    __syncthreads();
+  }
+  store_acc<DP>(a.dq, dq, b, h, i0 + warp * 16, T_, D, flags & VEC_OUT);
+}
+
+// The per-query statistics (max log2 e, 1 / sum, delta) of rows
+// [row0, row0 + MQ) into dst[3][MQ] by 16-byte cp.async; rows at or past
+// `n_rows` become zero, so padded queries get p = 0 and ds = 0.
+__device__ __forceinline__ void load_stats(float* dst, const float* stats, size_t N, size_t row0, int n_rows) {
+  constexpr int CH = MQ / 4;  // 16-byte chunks per statistic
+  const int e = threadIdx.x;
+  if (e < 3 * CH) {
+    const int k = e / CH, c = (e - k * CH) * 4;
+    const bool ok = c < n_rows;  // T % 8 == 0: a chunk is whole or out
+    cp_async16(smem_u32(dst + k * MQ + c), ok ? stats + k * N + row0 + c : stats, ok ? 16 : 0);
+  }
+}
+
+// Launch 2 of the bf16 backward, per 64 keys (16 a warp), over every query
+// tile: s^T = K Q^T and dp^T = V dO^T with K and V as A fragments, p^T from
+// launch 1's statistics (columns are queries), then dv += pd^T dO and
+// dk += ds^T Q from the C fragments packed to bf16. At DP = 128 a query
+// tile goes in two chunks of 32, one after the other, so the dk and dv
+// accumulators (128 f32 a thread) leave room for the scores without
+// spilling (246 registers; 64-query chunks, or two 32-query chunks
+// unrolled together, spill at the 255 cap).
+template <int DP>
+__global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DP + 8, QC = DP >= 128 ? 32 : MQ;  // QC: queries per chunk
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_mma);  // [MK][LD]
+  bf16* vs = ks + MK * LD;                       // [MK][LD]
+  bf16* qs = vs + MK * LD;                       // [NS][MQ][LD]
+  bf16* dos = qs + NS * MQ * LD;                 // [NS][MQ][LD]
+  float* sts = reinterpret_cast<float*>(dos + NS * MQ * LD);                 // [NS][3][MQ]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(sts + NS * 3 * MQ);  // [NS][MQ][MASK_LDB]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, j0 = blockIdx.y * MK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nqt = (T_ + MQ - 1) / MQ;
+  const size_t N = (size_t)a.B * a.H * T_;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: Q, dO, statistics and mask of query tile t.
+  auto issue = [&](int t) {
+    if (t < nqt) {
+      const int buf = t % NS, i0 = t * MQ;
+      load_rows<DP>(qs + buf * MQ * LD, a.q, b, h, i0, T_, D, vec);
+      load_rows<DP>(dos + buf * MQ * LD, a.dout, b, h, i0, T_, D, vec);
+      load_stats(sts + buf * 3 * MQ, a.stats, N, (size_t)bh * T_ + i0, T_ - i0);
+      if (a.mask) load_mask<MASK_LDB>(ms + buf * MQ * MASK_LDB, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DP>(ks, a.k, b, h, j0, T_, D, vec);
+  load_rows<DP>(vs, a.v, b, h, j0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  cp_async_wait<NS - 1>();
+  __syncthreads();
+  const bf16* kr = ks + warp * 16 * LD;
+  const bf16* vr = vs + warp * 16 * LD;
+  const int mcol = warp * 16 + g;  // the thread's key column in the mask tile (and + 8)
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < nqt; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    const bf16* qt = qs + buf * MQ * LD;
+    const bf16* dot = dos + buf * MQ * LD;
+    const float* st = sts + buf * 3 * MQ;
+    const unsigned char* mt = ms + buf * MQ * MASK_LDB;
+#pragma unroll 1  // unrolled, the two chunks at DP = 128 overlap and spill (255 registers)
+    for (int c0 = 0; c0 < MQ; c0 += QC) {
+      float s[QC / 8][4], dp[QC / 8][4];  // rows: keys g, g + 8; columns: queries
+      mma_abt<DP, QC>(s, kr, qt + c0 * LD);
+      mma_abt<DP, QC>(dp, vr, dot + c0 * LD);
+#pragma unroll
+      for (int n = 0; n < QC / 8; ++n) {
+        const int c = c0 + n * 8 + 2 * qd;  // the query of e = 0, 2; c + 1 for e = 1, 3
+        const float2 ml = *reinterpret_cast<const float2*>(st + c);
+        const float2 il = *reinterpret_cast<const float2*>(st + MQ + c);
+        const float2 de = *reinterpret_cast<const float2*>(st + 2 * MQ + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e & 1;
+          const float p = __fmul_rn(exp_shifted(__fmul_rn(s[n][e], a.scale), hi ? ml.y : ml.x), hi ? il.y : il.x);
+          float pd = p, d = dp[n][e];
+          if (a.mask) {
+            const float km = mt[(c + hi) * MASK_LDB + mcol + 8 * (e >> 1)] ? a.inv_keep : 0.f;  // as `apply_mask`
+            pd = __fmul_rn(p, km);
+            d = __fmul_rn(d, km);
+          }
+          s[n][e] = pd;
+          dp[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, hi ? de.y : de.x)), a.scale);
+        }
+      }
+      uint32_t pa[QC / 16][4], sa[QC / 16][4];
+      c_to_a(pa, s);
+      c_to_a(sa, dp);
+      mma_pm<DP, QC / 16>(dv, pa, dot + c0 * LD);
+      mma_pm<DP, QC / 16>(dk, sa, qt + c0 * LD);
+    }
+    __syncthreads();
+  }
+  const bool vout = flags & VEC_OUT;
+  store_acc<DP>(a.dk, dk, b, h, j0 + warp * 16, T_, D, vout);
+  store_acc<DP>(a.dv, dv, b, h, j0 + warp * 16, T_, D, vout);
+}
+
 bool is_aligned(const void* p, unsigned bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 template <typename U>
@@ -720,27 +1103,62 @@ bool rows_aligned(const View<U>& m, unsigned bytes) {
   return is_aligned(m.p, bytes) && m.sb % e == 0 && m.sh % e == 0 && m.st % e == 0;
 }
 
+// The VEC_* flags of a call: q, k, v (and dO) rows by 16 bytes, mask rows by
+// 8 (T % 8 == 0: every row 8-byte aligned), outputs by bf16 column pairs.
+int mma_flags(const Args<bf16>& a, bool backward) {
+  int flags = 0;
+  if (a.D % 8 == 0 && rows_aligned(a.q, 16) && rows_aligned(a.k, 16) && rows_aligned(a.v, 16) &&
+      (!backward || rows_aligned(a.dout, 16)))
+    flags |= VEC_QKV;
+  if (a.mask && is_aligned(a.mask, 8)) flags |= VEC_MASK;
+  if (a.D % 2 == 0 && (backward ? rows_aligned(a.dq, 4) && rows_aligned(a.dk, 4) && rows_aligned(a.dv, 4)
+                                : rows_aligned(a.o, 4)))
+    flags |= VEC_OUT;
+  return flags;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Launches a tensor-core kernel with `smem` bytes of dynamic shared memory.
+// Its limit, and the carveout at the most shared memory (two blocks of any
+// of these kernels on an SM at DP = 128), are set once per device and the
+// largest `smem` seen: no driver call on the launches after.
+template <auto Kernel>
+cudaError_t launch_mma(dim3 grid, size_t smem, const Args<bf16>& a, int flags, cudaStream_t s) {
+  static std::atomic<size_t> smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || smem_set[dev].load() < smem) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) smem_set[dev].store(smem);
+  }
+  Kernel<<<grid, MNT, smem, s>>>(a, flags);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t fwd_mma(const Args<bf16>& a, cudaStream_t s) {
   const size_t smem =
       sizeof(bf16) * (size_t)(MQ + 2 * NS * MK) * (DP + 8) + (a.mask ? NS * MQ * MASK_LD : 0);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int flags = 0;
-  if (a.D % 8 == 0 && rows_aligned(a.q, 16) && rows_aligned(a.k, 16) && rows_aligned(a.v, 16))
-    flags |= VEC_QKV;
-  if (a.mask && is_aligned(a.mask, 8)) flags |= VEC_MASK;  // T % 8 == 0: every row 8-byte aligned
-  if (a.D % 2 == 0 && rows_aligned(a.o, 4)) flags |= VEC_OUT;
-  attn_fwd_mma_kernel<DP><<<dim3(a.B * a.H, (a.Tn + MQ - 1) / MQ), MNT, smem, s>>>(a, flags);
-  return cudaGetLastError();
+  return launch_mma<attn_fwd_mma_kernel<DP>>(dim3(a.B * a.H, (a.Tn + MQ - 1) / MQ), smem, a,
+                                             mma_flags(a, false), s);
 }
 
-cudaError_t fwd_mma_dispatch(const Args<bf16>& a, cudaStream_t s) {
-  if (a.D <= 16) return fwd_mma<16>(a, s);
-  if (a.D <= 32) return fwd_mma<32>(a, s);
-  if (a.D <= 64) return fwd_mma<64>(a, s);
-  return fwd_mma<128>(a, s);
+template <int DP>
+cudaError_t bwd_mma(const Args<bf16>& a, cudaStream_t s) {
+  const size_t tiles = sizeof(bf16) * (size_t)(2 * MQ + 2 * NS * MK) * (DP + 8);
+  const size_t masks = a.mask ? NS * MQ * MASK_LDB : 0;
+  const int flags = mma_flags(a, true);
+  const dim3 grid(a.B * a.H, (a.Tn + MQ - 1) / MQ);  // MQ = MK: query tiles, then key tiles
+  const cudaError_t err = launch_mma<attn_bwd_dq_mma_kernel<DP>>(grid, tiles + masks, a, flags, s);
+  if (err != cudaSuccess) return err;
+  return launch_mma<attn_bwd_dkdv_mma_kernel<DP>>(grid, tiles + masks + sizeof(float) * NS * 3 * MQ, a,
+                                                  flags, s);
 }
 
 template <typename T, int DC>
@@ -772,23 +1190,31 @@ cudaError_t bwd(const Args<T>& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// bf16 forwards with D <= 128 run on the tensor cores. The rest run on the
-// CUDA cores, with DC chunks of 32 columns per lane covering D (8 <= D <= 256).
+// bf16 forwards and backwards with D <= 128 run on the tensor cores, DP
+// columns a tile. The rest run on the CUDA cores, with DC chunks of 32
+// columns per lane covering D (8 <= D <= 256).
+template <int N>
+using Int = std::integral_constant<int, N>;
+
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, bool backward, cudaStream_t s) {
-  if (backward) {
-    if (a.D <= 32) return bwd<T, 1>(a, s);
-    if (a.D <= 64) return bwd<T, 2>(a, s);
-    if (a.D <= 128) return bwd<T, 4>(a, s);
-    return bwd<T, 8>(a, s);
-  }
   if constexpr (std::is_same<T, bf16>::value) {
-    return a.D <= 128 ? fwd_mma_dispatch(a, s) : fwd<T, 8>(a, s);
+    const auto mma = [&](auto dp) {
+      return backward ? bwd_mma<decltype(dp)::value>(a, s) : fwd_mma<decltype(dp)::value>(a, s);
+    };
+    if (a.D <= 16) return mma(Int<16>());
+    if (a.D <= 32) return mma(Int<32>());
+    if (a.D <= 64) return mma(Int<64>());
+    if (a.D <= 128) return mma(Int<128>());
+    return backward ? bwd<T, 8>(a, s) : fwd<T, 8>(a, s);
   } else {
-    if (a.D <= 32) return fwd<T, 1>(a, s);
-    if (a.D <= 64) return fwd<T, 2>(a, s);
-    if (a.D <= 128) return fwd<T, 4>(a, s);
-    return fwd<T, 8>(a, s);
+    const auto cores = [&](auto dc) {
+      return backward ? bwd<T, decltype(dc)::value>(a, s) : fwd<T, decltype(dc)::value>(a, s);
+    };
+    if (a.D <= 32) return cores(Int<1>());
+    if (a.D <= 64) return cores(Int<2>());
+    if (a.D <= 128) return cores(Int<4>());
+    return cores(Int<8>());
   }
 }
 

@@ -5,7 +5,8 @@ library, `_build/<name>-<hash>.so`, keyed by a hash of the sources and the
 flags, and loaded with `ctypes`. A source that includes no PyTorch header
 builds in seconds, against minutes for `torch.utils.cpp_extension.load`.
 `build_all()` starts one `nvcc` per source in `csrc/` at once and waits for
-all.
+all. Each build's compiler log (ptxas registers and spills) is kept beside
+its library, `build_log(name)`.
 
 Without `nvcc` (no CUDA toolkit) a build raises: the kernels are reached
 only from CUDA tensors, and a CUDA tensor reaches its kernel or raises.
@@ -67,6 +68,7 @@ def _finish(proc: subprocess.Popen) -> str:
     if proc.returncode != 0:
         proc.tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {proc.kname}.cu (exit {proc.returncode}):\n{log}")
+    proc.target.with_suffix(".log").write_text(log)
     os.replace(proc.tmp, proc.target)
     return log
 
@@ -90,6 +92,13 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+
+
+def build_log(name: str) -> str:
+    """The compiler log of the current build of `csrc/<name>.cu` ("" if it
+    is not built)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load_library(name: str) -> ctypes.CDLL:

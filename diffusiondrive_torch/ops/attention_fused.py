@@ -14,9 +14,10 @@ contiguous last dimension, so the (B, T, H, D) view of a `Linear` output
 reshaped by heads is read in place; their outputs are (B, H, T, D) views of
 (B, T, H, D) memory, so merging the heads back is free.
 
-On the card a bf16 forward with D <= 128 (every fusion stage) runs on the
-tensor cores (`attn_fwd_mma_kernel`); float32, bf16 with D > 128 and the
-backward run on the CUDA cores (`forward_kernel` names the forward's).
+On the card bf16 with D <= 128 (every fusion stage) runs on the tensor cores
+(`attn_fwd_mma_kernel`; the backward's `attn_bwd_dq_mma_kernel` and
+`attn_bwd_dkdv_mma_kernel`); float32 and bf16 with D > 128 run on the CUDA
+cores (`forward_kernel` and `backward_kernel` name the kernels of a call).
 
 `fused_attention` is a `torch.autograd.Function` whose forward and backward
 dispatch on the tensors' device: a CPU tensor takes the plain version, a
@@ -35,7 +36,7 @@ import torch
 from diffusiondrive_torch.ops._build import load_library
 
 _MAX_T = 512
-_MMA_MAX_D = 128  # `csrc/attention_fused.cu:dispatch`
+_MMA_MAX_D = 128  # `csrc/attention_fused.cu:dispatch`, forward and backward
 
 
 def supports_fused_attention(T: int, d_head: int) -> bool:
@@ -47,6 +48,13 @@ def forward_kernel(dtype: torch.dtype, d_head: int) -> str:
     """Which forward kernel a CUDA call launches: "mma" (bf16 with D <= 128,
     mma.sync on the tensor cores) or "cuda_core" (f32 FMAs)."""
     return "mma" if dtype == torch.bfloat16 and d_head <= _MMA_MAX_D else "cuda_core"
+
+
+def backward_kernel(dtype: torch.dtype, d_head: int) -> str:
+    """Which backward kernels a CUDA call launches: "mma" (bf16 with D <= 128,
+    both launches on the tensor cores) or "cuda_core" (f32 FMAs): the
+    forward's rule."""
+    return forward_kernel(dtype, d_head)
 
 
 def dropout_keep_mask(generator: Optional[torch.Generator], shape: Sequence[int], pdrop: float,

@@ -238,17 +238,18 @@ def _attention_inputs(B, H, T, D, dtype, masked, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33),
-                                     (2, 4, 320, 16), (2, 4, 320, 128)])
+                                     (2, 4, 320, 16), (2, 4, 320, 128), (1, 2, 504, 128)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T, D, masked):
     """The forward and backward kernels against their plain versions at odd
     shapes the gate takes (T = 8, 24, 504; D = 8, 33, 256) and at the
     fusion blocks' T = 320 with the first and last stage's D (16, 128), q,
     k, v and dO read as (B, T, H, D) views, with and without a p = 0.25
-    keep mask. bf16 with D <= 128 runs the tensor-core forward, D = 256 and
-    float32 the CUDA-core one. Tolerances as in `chip_smoke.py`: float32
+    keep mask. bf16 with D <= 128 runs the tensor-core kernels (T = 504,
+    D = 128: the largest tiles and the longest key loop), D = 256 and
+    float32 the CUDA-core ones. Tolerances as in `chip_smoke.py`: float32
     sums in another order; bf16 probabilities and score gradients rounded to
-    bf16 on either side of a last-bit difference, and the bf16 forward also
+    bf16 on either side of a last-bit difference, and every bf16 result also
     within 2 bf16 ulps of max |plain|."""
     q, k, v, do, mask, pdrop = _attention_inputs(B, H, T, D, dtype, masked, cuda_device, T * D + masked)
     fwd0, bwd0 = fused_attention.launches, fused_attention_bwd.launches
@@ -263,6 +264,8 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
         _within_2_bf16_ulps(out, want, "out")
     for name, got, want in zip("dq dk dv".split(), grads, attention_bwd_plain(q, k, v, mask, do, pdrop)):
         _close(got, want, tol, name)
+        if dtype == torch.bfloat16:
+            _within_2_bf16_ulps(got, want, name)
     # through autograd: the Function's backward is the backward kernel
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     fused_attention(*leaves, mask, pdrop).backward(do)
@@ -274,10 +277,10 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dtype, tol):
-    """The backward kernels (left as they were when the bf16 forward moved
-    to the tensor cores) at one fixed fusion-block input, (2, 4, 320, 64)
-    with a keep mask: dq, dk and dv within the plain versions' limits, bf16
-    also within 2 bf16 ulps, and the same bits in a second call."""
+    """The backward kernels (bf16 on the tensor cores, float32 on the CUDA
+    cores) at one fixed fusion-block input, (2, 4, 320, 64) with a keep
+    mask: dq, dk and dv within the plain versions' limits, bf16 also within
+    2 bf16 ulps, and the same bits in a second call (no atomics)."""
     q, k, v, do, mask, pdrop = _attention_inputs(2, 4, 320, 64, dtype, True, cuda_device, 64)
     got = fused_attention_bwd(q, k, v, mask, do, pdrop)
     again = fused_attention_bwd(q, k, v, mask, do, pdrop)

@@ -27,7 +27,7 @@ from diffusiondrive_torch.models.layers import set_dropout_generator
 from diffusiondrive_torch.models.resnet import BasicBlock, ResNetStem
 from diffusiondrive_torch.ops import attention_fused, conv_fused, stem_fused
 from diffusiondrive_torch.ops.attention_fused import (
-    dropout_keep_mask, fused_attention, supports_fused_attention)
+    backward_kernel, dropout_keep_mask, forward_kernel, fused_attention, supports_fused_attention)
 from diffusiondrive_torch.ops.conv_fused import conv3x3_train, fused_conv3x3
 from diffusiondrive_torch.utils.port_jax import jax_params_to_named, load_jax_variables
 
@@ -133,6 +133,27 @@ def test_gate_equals_jax():
     for T in range(0, 530, 4):
         for D in (0, 4, 7, 8, 9, 16, 33, 64, 128, 255, 256, 257, 512):
             assert supports_fused_attention(T, D) == jattn.supports_fused_attention(T, D), (T, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_names_follow_the_dispatch_rule(dtype):
+    """`forward_kernel` and `backward_kernel` name what `dispatch` in
+    `csrc/attention_fused.cu` launches over a grid of head widths: the
+    tensor cores ("mma") for bf16 with D up to the source's bound in both
+    directions, the CUDA cores for float32 and wider bf16 heads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(attention_fused.__file__).resolve().parent.parent / "csrc" / "attention_fused.cu").read_text()
+    # bf16: one head-width ladder `mma(Int<DP>())` whose lambda takes either direction
+    assert re.search(r"backward \? bwd_mma<[^>]+>\(a, s\) : fwd_mma<[^>]+>\(a, s\)", src)
+    mma_bound = max(int(n) for n in re.findall(r"if \(a\.D <= (\d+)\) return mma\(", src))
+    bounds = {"forward": mma_bound, "backward": mma_bound}
+    assert bounds == {"forward": 128, "backward": 128}
+    for D in (8, 16, 32, 33, 48, 64, 127, 128, 129, 192, 256):
+        for direction, name in (("forward", forward_kernel), ("backward", backward_kernel)):
+            want = "mma" if dtype == torch.bfloat16 and D <= bounds[direction] else "cuda_core"
+            assert name(dtype, D) == want, (direction, dtype, D)
 
 
 def _fusion_configs(attn_pdrop=0.0, **kw):

@@ -166,6 +166,40 @@ def test_port_imports_no_jax_and_builds_nothing_on_import():
     assert int(proc.stdout.split()[-1]) >= 48  # every module of the four slices
 
 
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122attn_bwd_dq_mma_kernelILi16EEEvNS_4ArgsI13__nv_bfloat16EEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122attn_bwd_dq_mma_kernelILi16EEEvNS_4ArgsI13__nv_bfloat16EEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 147 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124attn_bwd_dkdv_mma_kernelILi128EEEvNS_4ArgsI13__nv_bfloat16EEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124attn_bwd_dkdv_mma_kernelILi128EEEvNS_4ArgsI13__nv_bfloat16EEi
+    24 bytes stack frame, 20 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi4EEEvNS_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115attn_fwd_kernelIfLi4EEEvNS_4ArgsIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_per_instantiation():
+    """The build phase's spill gate reads nvcc's `-Xptxas -v` log: per
+    tensor-core kernel and head-width instantiation DP, [registers, spill
+    store bytes, spill load bytes]; other kernels are not mixed in. An
+    unbuilt library has an empty log (the gate then finds no instantiation
+    and fails)."""
+    import chip_smoke
+    from diffusiondrive_torch.ops import _build
+
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_bwd_dq_mma_kernel") == {"16": [147, 0, 0]}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_bwd_dkdv_mma_kernel") == {"128": [255, 20, 24]}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_fwd_mma_kernel") == {}
+    assert set(chip_smoke.MMA_KERNELS) == {"attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel",
+                                           "attn_bwd_dkdv_mma_kernel"}
+    if not _build._target("attention_fused").exists():
+        assert _build.build_log("attention_fused") == ""
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_and_prints_no_result_without_a_gpu(where, tmp_path):
     """Run from the repo root or from a directory that holds only the script:
