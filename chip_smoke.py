@@ -12,10 +12,15 @@ line per phase, then one JSON line per kernel summary, then the result:
                and fails unless ptxas reports 0 spill bytes for each of the
                four instantiations (DP = 16, 32, 64, 128) of every
                tensor-core attention kernel (`MMA_KERNELS`: the forward and
-               the backward's two launches).
+               the backward's two launches) and each of the four (residual,
+               ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`).
 3. ``kernel``  each kernel at its main-path shapes (B=16; the conv kernels in
                bf16 and f32) against its plain PyTorch version (max abs error
-               and the tolerance; the lidar splat must be exact), timed beside
+               and the tolerance; the lidar splat must be exact; conv3x3
+               rows name their kernel in `path`, "mma" for bf16 on the tensor
+               cores or "cuda_core" for float32, bf16 rows also hold 2 bf16
+               ulps of max |plain|, two calls give the same bits, and
+               `library_conv_ms` is the bare `F.conv2d`), timed beside
                the plain version, a library yardstick (`library_ms`, never
                used by the port) and the card's bound for the same work
                (`bound_ms`). Every time in a kernel row comes from one timer,
@@ -30,9 +35,9 @@ line per phase, then one JSON line per kernel summary, then the result:
                `scaled_dot_product_attention` unmasked with its backend
                pinned, `SDPA_BACKEND`; one untimed pass over the first row
                first) and ``kernel conv3x3_train`` (its forward and input
-               gradient at the B=64 layer-1 shapes in bf16, and one autograd
-               backward against the plain version's; library: cuDNN `conv2d`
-               and `conv2d_input`).
+               gradient at the B=64 layer-1 shapes in bf16, within 2 bf16
+               ulps too, and one autograd backward against the plain
+               version's; library: cuDNN `conv2d` and `conv2d_input`).
 4. ``main_path`` the full-width planner forward (default TransfuserConfig,
                seeded random weights): (a) float32 at B=1 on the card against
                the same model on the CPU; (b) bf16 at B=1 and B=16, finite
@@ -120,8 +125,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Tolerances are relative: the limit on max |got - want| is tol * max(1, max |want|).
-# float32: sums in another order. bf16: the plain version rounds the conv to
-# bf16 before the affine, the kernel keeps it in f32 (one bf16 ulp apart).
+# float32: sums in another order. bf16: f32 sums in another order tip a
+# rounding to bf16 (every bf16 row also holds 2 bf16 ulps, `check_bf16_ulps`).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # kernel vs plain
 MAIN_TOL = 1e-3            # card f32 forward vs CPU f32 forward
 COMPARISON_SEEDS = (5, 10)  # `comparison_batch` seeds of the float32 step gates (at each, some float32 step
@@ -215,11 +220,12 @@ def nhwc_randn(shape, gen, device, dtype):
 
 
 def check_bf16_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """The bf16 attention rows' second limit, 2 bf16 ulps (2 * 2^-8) of max
-    |want|: both versions round p and the score gradient to bf16 at the same
-    places, so a last-bit float32 difference before a rounding flips it by
-    one ulp and the result's own rounding by one more (as the CPU test
-    against JAX). Returns the limit; raises past it."""
+    """The bf16 rows' second limit, 2 bf16 ulps (2 * 2^-8) of max |want|:
+    kernel and plain version round to bf16 at the same places (attention: p
+    and the score gradient, then the result; conv3x3: the result only), so
+    a last-bit float32 difference before a rounding flips it by one ulp and
+    the result's own rounding by one more (as the CPU tests against JAX).
+    Returns the limit; raises past it."""
     err = (got.float() - want.float()).abs().max().item()
     limit = 2.0 * 2.0 ** -8 * want.float().abs().max().item()
     if not err <= limit:
@@ -247,19 +253,20 @@ def phase_device() -> str:
 
 # the tensor-core attention kernels of `csrc/attention_fused.cu`, each built for DP = 16, 32, 64, 128
 MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")
+# the tensor-core conv3x3 kernel of `csrc/conv3x3_fused.cu`, built for (RES, RELU) in {0, 1}^2
+CONV_MMA_KERNEL = "conv3x3_mma_kernel"
 
 
 def ptxas_stats(text: str, kernel: str) -> dict:
-    """{"<DP>": [registers, spill store bytes, spill load bytes]} for every
-    instantiation of `kernel` (template argument DP), from an nvcc
-    `-Xptxas -v` log."""
+    """{"<template arguments>": [registers, spill store bytes, spill load
+    bytes]} for every instantiation of `kernel`, from an nvcc `-Xptxas -v`
+    log; the key joins the integer template arguments ("128"; "1,0")."""
     out, key = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            name = m.group(1)
-            dp = re.search(r"ILi(\d+)E", name)
-            key = dp.group(1) if kernel in name and dp else None
+            args = re.search(re.escape(kernel) + r"I((?:L[a-z]+\d+E)+)E", m.group(1))
+            key = ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) if args else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and key is not None:
@@ -280,20 +287,22 @@ def phase_build() -> dict:
     if missing:
         raise RuntimeError(f"kernel libraries not built: {missing}")
     logs = {n: _build.build_log(n) for n in _build.kernel_names()}  # this build's or the cached one's
-    stats = [ln.strip() for name, text in logs.items() if name != "attention_fused"
+    stats = [ln.strip() for name, text in logs.items() if name not in ("attention_fused", "conv3x3_fused")
              for ln in text.splitlines() if "registers" in ln or "spill" in ln]
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
+    conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
     log("build", seconds=round(time.time() - t0, 3), built=built,
-        kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma)
-    bad = {k: v for k, v in mma.items() if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
+        kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
+        conv_mma_regs_spills=conv)
+    bad = {k: v for k, v in {**mma, **conv}.items()
+           if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
     if bad:
-        raise AssertionError(f"tensor-core attention kernels: want 4 instantiations each with 0 spill "
-                             f"bytes, got {bad}")
+        raise AssertionError(f"tensor-core kernels: want 4 instantiations each with 0 spill bytes, got {bad}")
     return logs
 
 
 def phase_kernels(dev) -> dict:
-    from diffusiondrive_torch.ops.conv_fused import conv3x3_plain, fused_conv3x3, to_hwio
+    from diffusiondrive_torch.ops.conv_fused import conv3x3_kernel, conv3x3_plain, fused_conv3x3, to_hwio
     from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
 
     gen = torch.Generator().manual_seed(0)
@@ -325,22 +334,27 @@ def phase_kernels(dev) -> dict:
             log(f"kernel stem {label}", **row)
             summary[("stem", label, dtype)] = row
 
-    for label, shape in (("image", (16, 64, 256, 64)), ("lidar", (16, 64, 64, 64))):
+    for label, shape in CONV_EVAL:
         B, H, W, _ = shape
         w_oihw = (torch.randn(64, 64, 3, 3, generator=gen) / 24.0).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x = nhwc_randn(shape, gen, dev, dtype)
             r = nhwc_randn(shape, gen, dev, dtype)
             w = to_hwio(w_oihw, dtype)
+            wc = w_oihw.to(dtype)
             wf = (w_oihw * s[:, None, None, None]).to(dtype)
             bf = b.to(dtype)
             for res in (None, r):
                 got = fused_conv3x3(x, w, s, b, res, relu=True)
+                again = fused_conv3x3(x, w, s, b, res, relu=True)
                 want = conv3x3_plain(x, w, s, b, res, relu=True)
                 torch.cuda.synchronize()
                 variant = "residual" if res is not None else "no_residual"
-                err, limit = check_close(f"conv3x3 {label} {variant} {dtype}", got, want,
-                                         TOL[dtype])
+                tag = f"conv3x3 {label} {variant} {dtype}"
+                err, limit = check_close(tag, got, want, TOL[dtype])
+                ulps = check_bf16_ulps(tag, got, want) if dtype == torch.bfloat16 else None
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two calls gave different bits")
                 esize = x.element_size()
                 flops = 2.0 * B * H * W * 64 * 576
                 nbytes = esize * (B * H * W * 64 * (2 + (res is not None)) + 576 * 64) + 2 * 64 * 4
@@ -349,11 +363,12 @@ def phase_kernels(dev) -> dict:
                     lib = lambda: torch.relu_(F.conv2d(x, wf, bf, padding=1))  # noqa: E731
                 else:
                     lib = lambda: torch.relu_(F.conv2d(x, wf, bf, padding=1).add_(r))  # noqa: E731
-                row = dict(shape=list(shape), dtype=str(dtype), variant=variant, max_abs_err=err,
-                           limit=limit,
+                row = dict(shape=list(shape), dtype=str(dtype), variant=variant, path=conv3x3_kernel(dtype),
+                           max_abs_err=err, limit=limit, ulp_limit=ulps,
                            **time_rows({"kernel_ms": lambda: fused_conv3x3(x, w, s, b, res, relu=True),
                                         "plain_ms": lambda: conv3x3_plain(x, w, s, b, res, relu=True),
-                                        "library_ms": lib}),
+                                        "library_ms": lib,
+                                        "library_conv_ms": lambda: F.conv2d(x, wc, padding=1)}),
                            bound_ms=bms, bound_by=by)
                 log(f"kernel conv3x3 {label} {variant}", **row)
                 summary[("conv3x3", label, variant, dtype)] = row
@@ -415,6 +430,7 @@ def phase_lidar_splat(dev) -> dict:
 
 ATTN_BHT = (64, 4, 320)        # batch, heads, tokens of the fusion blocks at the CLI's batch
 ATTN_D = (16, 32, 64, 128)     # head widths of fusion stages 1-4 (C / 4 for C = 64..512)
+CONV_EVAL = (("image", (16, 64, 256, 64)), ("lidar", (16, 64, 64, 64)))   # layer 1 at B=16, NHWC
 CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # layer 1 at B=64, NHWC
 # the SDPA yardstick's backend, pinned: what SDPA picks on the H100 for the attention rows' shapes
 SDPA_BACKEND = {torch.bfloat16: SDPBackend.CUDNN_ATTENTION, torch.float32: SDPBackend.EFFICIENT_ATTENTION}
@@ -510,7 +526,7 @@ def phase_conv3x3_train(dev) -> dict:
     autograd against the plain version's (dx and the library's dw).
     library_ms: cuDNN `F.conv2d` and `torch.nn.grad.conv2d_input`."""
     from diffusiondrive_torch.ops.conv_fused import (
-        conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
+        conv3x3_kernel, conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 
     gen = torch.Generator().manual_seed(5)
     one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
@@ -542,8 +558,9 @@ def phase_conv3x3_train(dev) -> dict:
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err, limit = check_close(f"conv3x3_train {label} {part}", got, want, TOL[dtype])
-            row = dict(shape=list(shape), dtype=str(dtype), part=part, max_abs_err=err, limit=limit,
-                       autograd_max_abs_err=auto_err,
+            ulps = check_bf16_ulps(f"conv3x3_train {label} {part}", got, want)
+            row = dict(shape=list(shape), dtype=str(dtype), part=part, path=conv3x3_kernel(dtype),
+                       max_abs_err=err, limit=limit, ulp_limit=ulps, autograd_max_abs_err=auto_err,
                        **time_rows({"kernel_ms": kern, "plain_ms": plain, "library_ms": lib}),
                        bound_ms=bms, bound_by=by)
             log(f"kernel conv3x3_train {label} {part}", **row)
@@ -1162,9 +1179,9 @@ def main() -> int:
                         "max_abs_err": max(errs), "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "pass": True,
-                        **{k: row[k] for k in ("library", "shape") if k in row}})
+                        **{k: row[k] for k in ("library", "shape", "path", "library_conv_ms") if k in row}})
     kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part)][k] for k in (
-        "kernel_ms", "plain_ms", "bound_ms", "library_ms")} for label in ("image", "lidar") for part in ("fwd", "dx")}
+        "kernel_ms", "plain_ms", "bound_ms", "library_ms", "path")} for label in ("image", "lidar") for part in ("fwd", "dx")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,15 +7,16 @@ NCHW logical in channels_last memory. Module names follow the Flax scopes
 
 `fused_mode` is the config's `fused_conv_mode`. In eval mode, unless it is
 "off", the stem (where `supports_fused_stem` holds for its input, as in
-JAX; otherwise the module path below) and every 64-channel identity
-BasicBlock (layer 1) call the fused ops (`ops/stem_fused.py`,
+JAX; otherwise the module path below) and every BasicBlock where
+`supports_fused_conv3x3` holds (layer 1 at an even width, as in JAX) call
+the fused ops (`ops/stem_fused.py`,
 `ops/conv_fused.py`): those run their plain versions for CPU tensors,
 launch the CUDA kernels for CUDA tensors, and raise for a CUDA tensor the
 kernel does not take. Their operands (the HWIO weight in the compute dtype
 and the exact float32 BN affine) are made once per dtype and device. Train
 mode takes the module path: `F.conv2d` (cuDNN on the card), BatchNorm with
 batch statistics (`layers.BatchNorm2d`), ReLU, pool; with "train" or "interpret" the two convs
-of each layer-1 block run `conv3x3_train` instead (the conv3x3 kernel for the
+of each block where `supports_fused_conv3x3` holds run `conv3x3_train` instead (the conv3x3 kernel for the
 forward and the input gradient), BatchNorm, ReLU and the residual as before.
 BN eps is 1e-5.
 """
@@ -27,7 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusiondrive_torch.models.layers import BatchNorm2d, Conv2d
-from diffusiondrive_torch.ops.conv_fused import conv3x3_train, fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.conv_fused import (
+    conv3x3_train, fused_conv3x3, supports_fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.stem_fused import fused_stem, supports_fused_stem
 
 ARCH_SPECS = {
@@ -86,6 +88,7 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.fused_mode = fused_mode
+        self.features, self.stride = features, stride
         self.conv1 = Conv2d(in_features, features, 3, stride=stride, padding=1, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(features, dtype)
         self.conv2 = Conv2d(features, features, 3, padding=1, bias=False, dtype=dtype)
@@ -94,12 +97,11 @@ class BasicBlock(nn.Module):
         if self.has_downsample:
             self.downsample_conv = Conv2d(in_features, features, 1, stride=stride, bias=False, dtype=dtype)
             self.downsample_bn = BatchNorm2d(features, dtype)
-        # the layer-1 blocks: what the conv3x3 kernel computes
-        self.fused = not self.has_downsample and features == 64
         self._operands = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training and self.fused and self.fused_mode != "off":
+        fused = supports_fused_conv3x3(x, self.features, self.stride)
+        if not self.training and fused and self.fused_mode != "off":
             x = _channels_last(x, self.dtype)
             w1, s1, b1 = _kernel_operands(self, "conv1", "bn1", self.dtype)
             w2, s2, b2 = _kernel_operands(self, "conv2", "bn2", self.dtype)
@@ -107,7 +109,7 @@ class BasicBlock(nn.Module):
             return fused_conv3x3(y, w2, s2, b2, residual=x, relu=True)
 
         residual = x
-        if self.training and self.fused and self.fused_mode in ("train", "interpret"):
+        if self.training and fused and self.fused_mode in ("train", "interpret"):
             y = conv3x3_train(_channels_last(x, self.dtype), to_hwio(self.conv1.weight, self.dtype))
             y = F.relu(self.bn1(y))
             y = self.bn2(conv3x3_train(_channels_last(y, self.dtype),

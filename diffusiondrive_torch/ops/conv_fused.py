@@ -5,9 +5,13 @@ Counterpart of `diffusiondrive_tpu/ops/conv_fused.py:fused_conv3x3` and its
 `conv3x3_plain` beside it is the same function in plain PyTorch.
 
 `fused_conv3x3` dispatches on the tensor's device: a CPU tensor takes
-`conv3x3_plain`, a CUDA tensor launches the kernel or raises. The TPU's
+`conv3x3_plain`, a CUDA tensor launches the kernel or raises. On the card
+the dtype alone picks the kernel (`conv3x3_kernel`): bf16 runs on the
+tensor cores ("mma"), float32 on the CUDA cores ("cuda_core"). The TPU's
 width-pair packing (`pack_pairs`, `pack_conv3x3_weights`) is not ported: the
 kernel reads NHWC bytes directly, i.e. an NCHW tensor in channels_last memory.
+The models take the kernel only where `supports_fused_conv3x3` holds, as
+JAX's do.
 
 `conv3x3_train` (counterpart of JAX `conv3x3_train`) is the bare conv as a
 `torch.autograd.Function` for the train step: its forward and its input
@@ -48,13 +52,31 @@ def to_hwio(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype).permute(2, 3, 1, 0).contiguous()
 
 
+def supports_fused_conv3x3(x: torch.Tensor, features: int, stride: int) -> bool:
+    """JAX's gate (`supports_fused_conv3x3`): NCHW with 64 input channels, 64
+    output channels, stride 1, W even and at least 2. The models take the
+    kernel only where it holds and the module path otherwise; the kernel
+    itself takes any H and W."""
+    if x.dim() != 4 or x.shape[1] != 64 or features != 64 or stride != 1:
+        return False
+    _, _, H, W = x.shape
+    return W % 2 == 0 and H >= 1 and W >= 2
+
+
+def conv3x3_kernel(dtype: torch.dtype) -> str:
+    """Which kernel a CUDA call launches: "mma" (bf16, mma.sync on the
+    tensor cores) or "cuda_core" (float32 FMAs)."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
-    """Plain PyTorch version: conv in `x`'s dtype, then the affine, the
-    residual add and the ReLU in float32 (float64 for a float64 `x`), cast
-    back to `x`'s dtype. `w` is HWIO (3, 3, 64, 64)."""
+    """Plain PyTorch version, rounded as JAX's kernel rounds: the conv, the
+    affine, the residual add and the ReLU in float32 on the widened inputs
+    (float64 for a float64 `x`), then one rounding to `x`'s dtype. `w` is
+    HWIO (3, 3, 64, 64)."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    y = F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), padding=1).to(acc)
+    y = F.conv2d(x.to(acc), w.permute(3, 2, 0, 1).to(acc), padding=1)
     y = y * scale.to(acc)[:, None, None] + bias.to(acc)[:, None, None]
     if residual is not None:
         y = y + residual.to(acc)

@@ -132,7 +132,8 @@ def _by_kernel_name(kernels, n: int, out) -> None:
     add(("lap", "loss"), [k for k in kernels if "lap_kernel" in k.name])
     add(("attention_fwd",), [k for k in kernels if "attn_fwd_" in k.name])  # mma or CUDA-core kernel
     add(("attention_bwd",), [k for k in kernels if "attn_bwd_" in k.name])
-    conv = sorted((k for k in kernels if "conv3x3_kernel" in k.name), key=lambda k: k.time_range.start)
+    conv = sorted((k for k in kernels if "conv3x3_kernel" in k.name or "conv3x3_mma_kernel" in k.name),
+                  key=lambda k: k.time_range.start)  # the bf16 (mma) or float32 (CUDA-core) kernel
     if conv:
         per_step = len(conv) // n
         add(("conv3x3_train_fwd",), [k for i, k in enumerate(conv) if i % per_step < per_step // 2])

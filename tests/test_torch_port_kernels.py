@@ -3,11 +3,13 @@
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against the JAX Pallas kernels run in interpret mode, at the shapes of
 `tests/test_stem_fused.py` and `tests/test_conv_fused.py`, in float32 at
-1e-4 (sums taken in another order). The CUDA kernels themselves are held
+1e-4 (sums taken in another order), and the conv's plain version also in
+bf16, within one bf16 ulp (both round once, at the end). The CUDA kernels themselves are held
 against these plain versions on the card by `tests/test_torch_port_cuda.py`.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from diffusiondrive_tpu.ops.stem_fused import fused_stem as j_fused_stem
 
 from diffusiondrive_torch.models.resnet import ResNetStage, ResNetStem
 from diffusiondrive_torch.models.resnet import BasicBlock, _kernel_operands
-from diffusiondrive_torch.ops.conv_fused import bn_eval_affine, conv3x3_plain, fused_conv3x3, to_hwio
+from diffusiondrive_torch.ops.conv_fused import (
+    bn_eval_affine, conv3x3_plain, fused_conv3x3, supports_fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain, supports_fused_stem
 from diffusiondrive_torch.utils.port_jax import load_jax_variables
 
@@ -65,6 +68,35 @@ def test_conv3x3_matches_jax_pallas_interpret(residual, relu):
     got = fused_conv3x3(_nchw(x), torch.from_numpy(w), torch.from_numpy(sc),
                         torch.from_numpy(bi), None if res is None else _nchw(res), relu=relu)
     np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("residual,relu", [(False, False), (True, True)])
+def test_conv3x3_plain_rounds_once_in_bf16_as_jax(residual, relu):
+    """bf16 inputs: JAX's kernel sums in f32, applies the affine, the residual
+    and the ReLU in f32 and rounds to bf16 once; the port's plain version
+    (what the card's kernel is held to) must round at the same place, so the
+    two differ by at most one rounding: one bf16 ulp of max |JAX|, and
+    elementwise one ulp of each |JAX| value (above 2^-16 max |JAX|, where
+    f32 sums in another order may tip a rounding). Rounding the conv to
+    bf16 before the affine breaks the elementwise limit thousands of times."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(1, 16, 32, 64)) * 0.5).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 64, 64)) * 0.05).astype(np.float32)
+    sc = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+    bi = rng.normal(size=64).astype(np.float32)
+    res = rng.normal(size=x.shape).astype(np.float32) if residual else None
+    bf = jnp.bfloat16
+    want = np.asarray(j_fused_conv3x3(jnp.asarray(x, bf), jnp.asarray(w, bf), sc, bi,
+                                      residual=None if res is None else jnp.asarray(res, bf),
+                                      relu=relu, interpret=True).astype(jnp.float32))
+    t = torch.bfloat16
+    got = fused_conv3x3(_nchw(x).to(t), torch.from_numpy(w).to(t), torch.from_numpy(sc),
+                        torch.from_numpy(bi), None if res is None else _nchw(res).to(t), relu=relu)
+    assert got.dtype == t
+    err, top = np.abs(_nhwc(got.float()) - want), np.abs(want).max()
+    assert err.max() <= 2.0 ** (np.floor(np.log2(top)) - 7)
+    ulps = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -16 * top))) - 7)
+    assert (err <= ulps).all()
 
 
 def _randomize_bn(variables, seed):
@@ -183,6 +215,33 @@ def test_resnet_stem_takes_the_module_path_where_jax_does():
     with torch.no_grad():
         got = stem(_nchw(x))
     np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
+
+
+def test_basic_block_takes_the_module_path_where_jax_does():
+    """W = 15 (odd): JAX's `supports_fused_conv3x3` fails, so both packages'
+    layer-1 blocks run conv, BN, ReLU and the residual (equal within 1e-4).
+    Off the CPU (a meta tensor stands in for a CUDA one, where a kernel
+    call raises) the port's block reaches no conv3x3 wrapper in eval nor in
+    train with `fused_mode="train"`; at W = 16 it does, in both."""
+    x = (np.random.default_rng(8).normal(size=(2, 8, 15, 64)) * 0.5).astype(np.float32)
+    assert not supports_fused_conv3x3(_nchw(x), 64, 1)
+    assert supports_fused_conv3x3(torch.zeros(2, 64, 8, 16), 64, 1)
+    jstage = JResNetStage(64, 1, stride=1, fused_mode="interpret")
+    variables = _randomize_bn(jax.jit(jstage.init)(jax.random.PRNGKey(2), x), 9)
+    want = np.asarray(jstage.apply(variables, x))
+    stage = load_jax_variables(ResNetStage(64, 64, 1), variables).eval()
+    with torch.no_grad():
+        got = stage(_nchw(x))
+    np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
+
+    launches = fused_conv3x3.launches
+    for train in (False, True):
+        block = BasicBlock(64, 64, fused_mode="train").to("meta").train(train)
+        with torch.no_grad():
+            assert block(torch.empty(2, 64, 8, 15, device="meta")).shape == (2, 64, 8, 15)
+            with pytest.raises(RuntimeError, match="no kernel"):
+                block(torch.empty(2, 64, 8, 16, device="meta"))
+    assert fused_conv3x3.launches == launches
 
 
 def test_kernel_operands_follow_parameter_updates():

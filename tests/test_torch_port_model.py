@@ -179,13 +179,22 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115attn_fwd_kernelIfLi4EEEvNS_4ArgsIT_EE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e618conv3x3_mma_kernelILb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_S3_PS1_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e618conv3x3_mma_kernelILb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_S3_PS1_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e614conv3x3_kernelIfLb1ELb1EEEvPKT_S3_PKfS5_S3_PS1_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e614conv3x3_kernelIfLb1ELb1EEEvPKT_S3_PKfS5_S3_PS1_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 1 barriers
 """
 
 
 def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     """The build phase's spill gate reads nvcc's `-Xptxas -v` log: per
-    tensor-core kernel and head-width instantiation DP, [registers, spill
-    store bytes, spill load bytes]; other kernels are not mixed in. An
+    tensor-core kernel and instantiation (attention: head width DP; conv3x3:
+    residual, ReLU), [registers, spill store bytes, spill load bytes];
+    other kernels, the CUDA-core conv3x3 among them, are not mixed in. An
     unbuilt library has an empty log (the gate then finds no instantiation
     and fails)."""
     import chip_smoke
@@ -194,6 +203,7 @@ def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_bwd_dq_mma_kernel") == {"16": [147, 0, 0]}
     assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_bwd_dkdv_mma_kernel") == {"128": [255, 20, 24]}
     assert chip_smoke.ptxas_stats(_PTXAS_LOG, "attn_fwd_mma_kernel") == {}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.CONV_MMA_KERNEL) == {"1,0": [240, 0, 0]}
     assert set(chip_smoke.MMA_KERNELS) == {"attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel",
                                            "attn_bwd_dkdv_mma_kernel"}
     if not _build._target("attention_fused").exists():
