@@ -12,14 +12,17 @@ line per phase, then one JSON line per kernel summary, then the result:
                and fails unless ptxas reports 0 spill bytes for each of the
                four instantiations (DP = 16, 32, 64, 128) of every
                tensor-core attention kernel (`MMA_KERNELS`: the forward and
-               the backward's two launches) and each of the four (residual,
-               ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`).
-3. ``kernel``  each kernel at its main-path shapes (B=16; the conv kernels in
-               bf16 and f32) against its plain PyTorch version (max abs error
-               and the tolerance; the lidar splat must be exact; conv3x3
-               rows name their kernel in `path`, "mma" for bf16 on the tensor
-               cores or "cuda_core" for float32, bf16 rows also hold 2 bf16
-               ulps of max |plain|, two calls give the same bits, and
+               the backward's two launches), each of the four (residual,
+               ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`)
+               and each of the four (C = 1..4) of the tensor-core stem
+               kernel (`STEM_MMA_KERNEL`).
+3. ``kernel``  each kernel at its main-path shapes (B=16, and the camera stem
+               also at B=1; the conv kernels in bf16 and f32) against its
+               plain PyTorch version (max abs error and the tolerance; the
+               lidar splat must be exact; stem and conv3x3 rows name their
+               kernel in `path`, "mma" for bf16 on the tensor cores or
+               "cuda_core" for float32, bf16 rows also hold 2 bf16 ulps of
+               max |plain|, two calls give the same bits, and
                `library_conv_ms` is the bare `F.conv2d`), timed beside
                the plain version, a library yardstick (`library_ms`, never
                used by the port) and the card's bound for the same work
@@ -222,10 +225,10 @@ def nhwc_randn(shape, gen, device, dtype):
 def check_bf16_ulps(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """The bf16 rows' second limit, 2 bf16 ulps (2 * 2^-8) of max |want|:
     kernel and plain version round to bf16 at the same places (attention: p
-    and the score gradient, then the result; conv3x3: the result only), so
-    a last-bit float32 difference before a rounding flips it by one ulp and
-    the result's own rounding by one more (as the CPU tests against JAX).
-    Returns the limit; raises past it."""
+    and the score gradient, then the result; stem and conv3x3: the result
+    only), so a last-bit float32 difference before a rounding flips it by
+    one ulp and the result's own rounding by one more (as the CPU tests
+    against JAX). Returns the limit; raises past it."""
     err = (got.float() - want.float()).abs().max().item()
     limit = 2.0 * 2.0 ** -8 * want.float().abs().max().item()
     if not err <= limit:
@@ -255,6 +258,8 @@ def phase_device() -> str:
 MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")
 # the tensor-core conv3x3 kernel of `csrc/conv3x3_fused.cu`, built for (RES, RELU) in {0, 1}^2
 CONV_MMA_KERNEL = "conv3x3_mma_kernel"
+# the tensor-core stem kernel of `csrc/stem_fused.cu`, built for C = 1, 2, 3, 4
+STEM_MMA_KERNEL = "stem_mma_kernel"
 
 
 def ptxas_stats(text: str, kernel: str) -> dict:
@@ -287,14 +292,16 @@ def phase_build() -> dict:
     if missing:
         raise RuntimeError(f"kernel libraries not built: {missing}")
     logs = {n: _build.build_log(n) for n in _build.kernel_names()}  # this build's or the cached one's
-    stats = [ln.strip() for name, text in logs.items() if name not in ("attention_fused", "conv3x3_fused")
+    stats = [ln.strip() for name, text in logs.items()
+             if name not in ("attention_fused", "conv3x3_fused", "stem_fused")
              for ln in text.splitlines() if "registers" in ln or "spill" in ln]
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
     conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
+    stem = {STEM_MMA_KERNEL: ptxas_stats(logs["stem_fused"], STEM_MMA_KERNEL)}
     log("build", seconds=round(time.time() - t0, 3), built=built,
         kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
-        conv_mma_regs_spills=conv)
-    bad = {k: v for k, v in {**mma, **conv}.items()
+        conv_mma_regs_spills=conv, stem_mma_regs_spills=stem)
+    bad = {k: v for k, v in {**mma, **conv, **stem}.items()
            if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
     if bad:
         raise AssertionError(f"tensor-core kernels: want 4 instantiations each with 0 spill bytes, got {bad}")
@@ -303,33 +310,40 @@ def phase_build() -> dict:
 
 def phase_kernels(dev) -> dict:
     from diffusiondrive_torch.ops.conv_fused import conv3x3_kernel, conv3x3_plain, fused_conv3x3, to_hwio
-    from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
+    from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_kernel, stem_plain
 
     gen = torch.Generator().manual_seed(0)
     s = (torch.rand(64, generator=gen) + 0.5).to(dev)
     b = (torch.randn(64, generator=gen) * 0.1).to(dev)
     summary = {}
 
-    for label, shape in (("camera", (16, 256, 1024, 3)), ("lidar", (16, 256, 256, 1))):
+    for label, shape in STEM_ROWS:
         B, H, W, C = shape
         w_oihw = (torch.randn(64, C, 7, 7, generator=gen) / (49 * C) ** 0.5).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x = nhwc_randn(shape, gen, dev, dtype)
             w = to_hwio(w_oihw, dtype)   # laid out once, as the model does
-            got, want = fused_stem(x, w, s, b), stem_plain(x, w, s, b)
+            got, again, want = fused_stem(x, w, s, b), fused_stem(x, w, s, b), stem_plain(x, w, s, b)
             torch.cuda.synchronize()
-            err, limit = check_close(f"stem {label} {dtype}", got, want, TOL[dtype])
+            tag = f"stem {label} {dtype}"
+            err, limit = check_close(tag, got, want, TOL[dtype])
+            ulps = check_bf16_ulps(tag, got, want) if dtype == torch.bfloat16 else None
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two calls gave different bits")
+            wc = w_oihw.to(dtype)
             wf = (w_oihw * s[:, None, None, None]).to(dtype)
             bf = b.to(dtype)
             esize = x.element_size()
             flops = 2.0 * B * (H // 2) * (W // 2) * 64 * 49 * C
             nbytes = esize * (B * H * W * C + B * (H // 4) * (W // 4) * 64 + 49 * C * 64) + 2 * 64 * 4
             bms, by = bound_ms(flops, nbytes, dtype)
-            row = dict(shape=list(shape), dtype=str(dtype), max_abs_err=err, limit=limit,
+            row = dict(shape=list(shape), dtype=str(dtype), path=stem_kernel(dtype), max_abs_err=err,
+                       limit=limit, ulp_limit=ulps,
                        **time_rows({"kernel_ms": lambda: fused_stem(x, w, s, b),
                                     "plain_ms": lambda: stem_plain(x, w, s, b),
                                     "library_ms": lambda: F.max_pool2d(
-                                        torch.relu_(F.conv2d(x, wf, bf, stride=2, padding=3)), 3, 2, 1)}),
+                                        torch.relu_(F.conv2d(x, wf, bf, stride=2, padding=3)), 3, 2, 1),
+                                    "library_conv_ms": lambda: F.conv2d(x, wc, stride=2, padding=3)}),
                        bound_ms=bms, bound_by=by)
             log(f"kernel stem {label}", **row)
             summary[("stem", label, dtype)] = row
@@ -430,6 +444,8 @@ def phase_lidar_splat(dev) -> dict:
 
 ATTN_BHT = (64, 4, 320)        # batch, heads, tokens of the fusion blocks at the CLI's batch
 ATTN_D = (16, 32, 64, 128)     # head widths of fusion stages 1-4 (C / 4 for C = 64..512)
+# the stems at B=16, and the camera at B=1 (NAVSIM's per-scene call), NHWC
+STEM_ROWS = (("camera", (16, 256, 1024, 3)), ("lidar", (16, 256, 256, 1)), ("camera b1", (1, 256, 1024, 3)))
 CONV_EVAL = (("image", (16, 64, 256, 64)), ("lidar", (16, 64, 64, 64)))   # layer 1 at B=16, NHWC
 CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # layer 1 at B=64, NHWC
 # the SDPA yardstick's backend, pinned: what SDPA picks on the H100 for the attention rows' shapes
@@ -1156,7 +1172,7 @@ def main() -> int:
     for name, key, row, src, replaces, errs in (
         ("stem_fused", "stem", summary[("stem", "camera", bf)], "diffusiondrive_torch/csrc/stem_fused.cu",
          "diffusiondrive_tpu/ops/stem_fused.py:95",
-         [summary[("stem", lbl, bf)]["max_abs_err"] for lbl in ("camera", "lidar")]),
+         [summary[("stem", lbl, bf)]["max_abs_err"] for lbl, _ in STEM_ROWS]),
         ("conv3x3_fused", "conv3x3", summary[("conv3x3", "image", "residual", bf)],
          "diffusiondrive_torch/csrc/conv3x3_fused.cu", "diffusiondrive_tpu/ops/conv_fused.py:55",
          [v["max_abs_err"] for k, v in summary.items() if k[0] == "conv3x3" and k[-1] == bf]),
@@ -1180,6 +1196,8 @@ def main() -> int:
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "pass": True,
                         **{k: row[k] for k in ("library", "shape", "path", "library_conv_ms") if k in row}})
+    kernels[0]["rows"] = {label: {k: summary[("stem", label, bf)][k] for k in (
+        "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_conv_ms", "path")} for label, _ in STEM_ROWS}
     kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part)][k] for k in (
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "path")} for label in ("image", "lidar") for part in ("fwd", "dx")}
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's mma.sync
-// kernels (`attention_fused.cu`, `conv3x3_fused.cu`): cp.async into shared
-// memory, ldmatrix fragments and the bf16 m16n8k16 product.
+// kernels (`attention_fused.cu`, `conv3x3_fused.cu`, `stem_fused.cu`): cp.async
+// into shared memory, ldmatrix and stmatrix fragments and the bf16 m16n8k16
+// product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,11 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // At most N groups are still in flight (this thread's copies).
@@ -43,6 +49,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// Four 8x8 b16 matrices to shared memory; lanes 8i .. 8i+7 give the row
+// addresses of matrix i, whose fragment is r_i (the layout of an mma C
+// fragment packed to bf16x2).
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0),
+               "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.

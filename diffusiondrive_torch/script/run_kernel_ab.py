@@ -1,7 +1,7 @@
 """Time one kernel family of this checkout against another checkout's, on one card.
 
 Both checkouts' kernels keep one Python interface (`ops/attention_fused.py`,
-`ops/conv_fused.py`), so one timing loop drives either. Each checkout runs
+`ops/conv_fused.py`, `ops/stem_fused.py`), so one timing loop drives either. Each checkout runs
 in a process of its own that imports its `diffusiondrive_torch` (built there
 from its own sources), in the order ref, this, this, ref, so a drift of the
 card over the call shows as a difference between the two runs of one
@@ -16,7 +16,9 @@ float32, without and with a p=0.1 keep mask. `--kernel conv3x3`
 (`phase_kernels`, `phase_conv3x3_train`): the eval conv3x3 at B=16
 (`CONV_EVAL`, with and without the residual, ReLU on) and the
 `conv3x3_train` forward and input gradient at B=64 (`CONV_TRAIN`), bf16
-and float32.
+and float32. `--kernel stem` (`phase_kernels`): the fused stem at
+`STEM_ROWS` (camera and lidar at B=16, the camera at B=1), bf16 and
+float32.
 
 Prints the card's name and power limit, then one JSON line per run: the
 kernel ms of each row (attention: summed over D for each direction, dtype
@@ -129,7 +131,28 @@ def conv3x3_cases(smoke, dev, root: Path):
                 yield {"dtype": str(dtype).replace("torch.", ""), "row": f"conv3x3_train {label} {part}"}, {"kernel": fn}
 
 
-KERNELS = {"attention": attention_cases, "conv3x3": conv3x3_cases}
+def stem_cases(smoke, dev, root: Path):
+    import torch
+
+    from diffusiondrive_torch.ops import conv_fused as cf
+    from diffusiondrive_torch.ops import stem_fused as sf
+
+    if not Path(sf.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {sf.__file__}, not the checkout at {root}")
+    gen = torch.Generator().manual_seed(0)
+    s = (torch.rand(64, generator=gen) + 0.5).to(dev)
+    b = (torch.randn(64, generator=gen) * 0.1).to(dev)
+    for label, shape in smoke.STEM_ROWS:
+        w_oihw = torch.randn(64, shape[3], 7, 7, generator=gen) / (49 * shape[3]) ** 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            x = smoke.nhwc_randn(shape, gen, dev, dtype)
+            w = cf.to_hwio(w_oihw.to(dev), dtype)
+            fn = lambda: sf.fused_stem(x, w, s, b)  # noqa: E731
+            smoke.check_close(f"stem {label} {dtype}", fn(), sf.stem_plain(x, w, s, b), smoke.TOL[dtype])
+            yield {"dtype": str(dtype).replace("torch.", ""), "row": f"stem {label}"}, {"kernel": fn}
+
+
+KERNELS = {"attention": attention_cases, "conv3x3": conv3x3_cases, "stem": stem_cases}
 
 
 def worker(root: Path, kernel: str) -> list:

@@ -16,7 +16,7 @@ from diffusiondrive_torch.ops.conv_fused import (
     conv3x3_kernel, conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
 from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain
-from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain
+from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_kernel, stem_plain
 
 
 @pytest.fixture
@@ -62,11 +62,18 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, tol):
 
 
 def _kernel_names(fn) -> set:
-    """Names of the CUDA kernels `fn` launches, from the profiler."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()}
+    """Names of the CUDA kernels `fn` launches, from the profiler's device
+    events. A trace that holds no device event (the profiler may lose the
+    kernel records of a short window and keep only the runtime calls) is
+    taken again, at most three times."""
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return set()
 
 
 @pytest.mark.cuda
@@ -102,6 +109,44 @@ def test_cuda_conv3x3_kernel_matches_plain_version(cuda_device, dtype, tol, B, H
     names = _kernel_names(lambda: fused_conv3x3(x, w, s, b, r, True))
     assert any("conv3x3_mma_kernel" in n for n in names) == (path == "mma"), names
     assert any("conv3x3_kernel" in n and "mma" not in n for n in names) == (path == "cuda_core"), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,W,Cs,bias", [(2, 36, 100, (1, 2, 3, 4), None), (1, 68, 132, (1, 2, 3, 4), None),
+                                           (2, 36, 100, (1, 2, 3, 4), -2.0), (1, 256, 1024, (3,), None)])
+def test_cuda_stem_kernel_matches_plain_version(cuda_device, dtype, tol, B, H, W, Cs, bias):
+    """The stem kernel the dtype picks (bf16: the tensor cores, "mma", for
+    every C = 1..4; float32: the CUDA cores, "cuda_core"; the profiler names
+    the kernel that ran) against its plain version: odd edges (36x100 gives
+    9x25 pooled outputs, 68x132 17x33: neither a multiple of the 8x16 tile),
+    a bias of -2 that drives whole regions to ReLU's zero (the pool's zero
+    padding must still equal -inf padding), and the camera at B=1 (NAVSIM's
+    per-scene call: 128 tiles, about one a block); bf16 also within 2 bf16
+    ulps (kernel and plain version round once, at the same place); the same
+    bits in two calls; one launch each."""
+    g = torch.Generator().manual_seed(H * W)
+    s = (torch.rand(64, generator=g) + 0.5).to(cuda_device)
+    b = (torch.randn(64, generator=g) * 0.1 if bias is None else torch.full((64,), bias)).to(cuda_device)
+    for C in Cs:
+        x = torch.randn(B, H, W, C, generator=g).to(cuda_device, dtype).permute(0, 3, 1, 2)
+        w = to_hwio((torch.randn(64, C, 7, 7, generator=g) * 0.1).to(cuda_device), dtype)
+        before = fused_stem.launches
+        got, again = fused_stem(x, w, s, b), fused_stem(x, w, s, b)
+        want = stem_plain(x, w, s, b)
+        torch.cuda.synchronize()
+        assert fused_stem.launches == before + 2
+        assert got.dtype == dtype and got.shape == (B, 64, H // 4, W // 4)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        _close(got, want, tol, f"stem C={C}")
+        if dtype == torch.bfloat16:
+            _within_2_bf16_ulps(got, want, f"stem C={C}")
+        assert torch.equal(got, again), f"stem C={C}"
+    path = stem_kernel(dtype)
+    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
+    names = _kernel_names(lambda: fused_stem(x, w, s, b))
+    assert any("stem_mma_kernel" in n for n in names) == (path == "mma"), names
+    assert any("stem_kernel" in n and "mma" not in n for n in names) == (path == "cuda_core"), names
 
 
 @pytest.mark.cuda

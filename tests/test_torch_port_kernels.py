@@ -3,9 +3,11 @@
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against the JAX Pallas kernels run in interpret mode, at the shapes of
 `tests/test_stem_fused.py` and `tests/test_conv_fused.py`, in float32 at
-1e-4 (sums taken in another order), and the conv's plain version also in
-bf16, within one bf16 ulp (both round once, at the end). The CUDA kernels themselves are held
-against these plain versions on the card by `tests/test_torch_port_cuda.py`.
+1e-4 (sums taken in another order), and both plain versions also in bf16,
+within one bf16 ulp (both round once, at the end). The CUDA kernels
+themselves are held against these plain versions on the card by
+`tests/test_torch_port_cuda.py`; the bf16 stem kernel's space-to-depth form
+is held to the 7x7/s2 conv here (`stem_conv_s2d`).
 """
 
 import jax
@@ -23,7 +25,8 @@ from diffusiondrive_torch.models.resnet import ResNetStage, ResNetStem
 from diffusiondrive_torch.models.resnet import BasicBlock, _kernel_operands
 from diffusiondrive_torch.ops.conv_fused import (
     bn_eval_affine, conv3x3_plain, fused_conv3x3, supports_fused_conv3x3, to_hwio)
-from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_plain, supports_fused_stem
+from diffusiondrive_torch.ops.stem_fused import (
+    fused_stem, stem_conv_s2d, stem_kernel, stem_plain, supports_fused_stem)
 from diffusiondrive_torch.utils.port_jax import load_jax_variables
 
 
@@ -54,6 +57,56 @@ def test_stem_matches_jax_pallas_interpret(B, H, W, C, bias):
     got = fused_stem(_nchw(x), torch.from_numpy(w), torch.from_numpy(sc), torch.from_numpy(bi))
     assert got.shape == (B, 64, H // 4, W // 4)
     np.testing.assert_allclose(_nhwc(got), want, rtol=1e-4, atol=1e-4)
+
+
+def _within_one_bf16_ulp_of(got, want):
+    """One bf16 ulp of max |want|, and elementwise one ulp of each |want|
+    value (above 2^-16 max |want|, where f32 sums in another order may tip a
+    rounding)."""
+    err, top = np.abs(got - want), np.abs(want).max()
+    assert err.max() <= 2.0 ** (np.floor(np.log2(top)) - 7)
+    ulps = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -16 * top))) - 7)
+    assert (err <= ulps).all(), int((err > ulps).sum())
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_stem_plain_rounds_once_in_bf16_as_jax(C):
+    """bf16 inputs at (1, 64, 512, C), the smallest shape JAX's gate takes:
+    JAX's kernel sums in f32, applies the affine and the ReLU in f32 and
+    rounds to bf16 once (the max-pool commutes with the rounding); the
+    port's plain version (what the card's kernel is held to) must round at
+    the same place, within the limits of
+    `test_conv3x3_plain_rounds_once_in_bf16_as_jax`. The old plain version,
+    which rounded the conv to bf16 before the affine and again after the
+    ReLU, broke the elementwise limit at 1447 (C=3) and 3706 (C=1) of the
+    131072 outputs."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(1, 64, 512, C)).astype(np.float32)
+    w = (rng.normal(size=(7, 7, C, 64)) * 0.1).astype(np.float32)
+    sc = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+    bi = rng.normal(size=64).astype(np.float32)
+    bf = jnp.bfloat16
+    want = np.asarray(j_fused_stem(jnp.asarray(x, bf), jnp.asarray(w, bf), sc, bi,
+                                   interpret=True).astype(jnp.float32))
+    t = torch.bfloat16
+    got = fused_stem(_nchw(x).to(t), torch.from_numpy(w).to(t), torch.from_numpy(sc),
+                     torch.from_numpy(bi))
+    assert got.dtype == t and stem_kernel(t) == "mma" and stem_kernel(torch.float32) == "cuda_core"
+    _within_one_bf16_ulp_of(_nhwc(got.float()), want)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_stem_space_to_depth_form_equals_the_strided_conv(C):
+    """The bf16 kernel's form of the conv (2x2 space-to-depth, channels
+    padded to 16, a 4x4/s1 conv whose output y reads s2d rows y-2 .. y+1,
+    tap (dr, dc) <- 7x7 tap (2dr+pr-1, 2dc+pc-1)) equals the 7x7/s2/pad3
+    conv in float32, at edges that are not multiples of the kernel's tiles
+    (H=36, W=100: 18x50 conv outputs, 9x25 pooled)."""
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(2, C, 36, 100, generator=g)
+    w = torch.randn(7, 7, C, 64, generator=g) * 0.1
+    want = torch.nn.functional.conv2d(x, w.permute(3, 2, 0, 1), stride=2, padding=3)
+    torch.testing.assert_close(stem_conv_s2d(x, w), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("residual,relu", [(False, False), (False, True), (True, True)])
@@ -93,10 +146,7 @@ def test_conv3x3_plain_rounds_once_in_bf16_as_jax(residual, relu):
     got = fused_conv3x3(_nchw(x).to(t), torch.from_numpy(w).to(t), torch.from_numpy(sc),
                         torch.from_numpy(bi), None if res is None else _nchw(res).to(t), relu=relu)
     assert got.dtype == t
-    err, top = np.abs(_nhwc(got.float()) - want), np.abs(want).max()
-    assert err.max() <= 2.0 ** (np.floor(np.log2(top)) - 7)
-    ulps = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -16 * top))) - 7)
-    assert (err <= ulps).all()
+    _within_one_bf16_ulp_of(_nhwc(got.float()), want)
 
 
 def _randomize_bn(variables, seed):
