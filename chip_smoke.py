@@ -15,11 +15,14 @@ line per phase, then one JSON line per kernel summary, then the result:
                the backward's two launches), each of the four (residual,
                ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`)
                and each of the four (C = 1..4) of the tensor-core stem
-               kernel (`STEM_MMA_KERNEL`).
+               kernel (`STEM_MMA_KERNEL`), and for the LAP and splat
+               kernels (`SINGLE_KERNELS`).
 3. ``kernel``  each kernel at its main-path shapes (B=16, and the camera stem
                also at B=1; the conv kernels in bf16 and f32) against its
                plain PyTorch version (max abs error and the tolerance; the
-               lidar splat must be exact; stem and conv3x3 rows name their
+               lidar splat must be exact and the same bits twice, on the
+               agent path's clouds and on a uniform cloud, its rows naming
+               `path` "segments" and the launch plan; stem and conv3x3 rows name their
                kernel in `path`, "mma" for bf16 on the tensor cores or
                "cuda_core" for float32, bf16 rows also hold 2 bf16 ulps of
                max |plain|, two calls give the same bits, and
@@ -67,7 +70,10 @@ line per phase, then one JSON line per kernel summary, then the result:
                kernel_ms, plain_ms, library_ms (scipy on the host, with the
                copy: no PyTorch call solves an assignment), bound_ms and
                ptxas registers/spills; the kernel makes no host sync
-               (`torch.cuda.set_sync_debug_mode`).
+               (`torch.cuda.set_sync_debug_mode`); `path` "warp_redux",
+               `critical_steps` (the longest chain of search steps and
+               augment hops over the batch, counted by the plain version
+               on the card outside the timed window) and `ns_per_step`.
 7. ``train_path`` the training path at full width. (a) ``bf16``: `Trainer.fit` over a
                `CacheOnlyDataset` of 3*B seeded samples at B=8 and B=64 (two
                epochs: the second is timed; validation of the weights and of
@@ -260,18 +266,24 @@ MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_m
 CONV_MMA_KERNEL = "conv3x3_mma_kernel"
 # the tensor-core stem kernel of `csrc/stem_fused.cu`, built for C = 1, 2, 3, 4
 STEM_MMA_KERNEL = "stem_mma_kernel"
+# the kernels of `csrc/lap.cu` and `csrc/lidar_splat.cu` (no templates), by source
+SINGLE_KERNELS = {"lap": "lap_kernel", "lidar_splat": "splat_kernel"}
 
 
 def ptxas_stats(text: str, kernel: str) -> dict:
     """{"<template arguments>": [registers, spill store bytes, spill load
     bytes]} for every instantiation of `kernel`, from an nvcc `-Xptxas -v`
-    log; the key joins the integer template arguments ("128"; "1,0")."""
+    log; the key joins the integer template arguments ("128"; "1,0"), and is
+    "" for a kernel that is no template."""
     out, key = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             args = re.search(re.escape(kernel) + r"I((?:L[a-z]+\d+E)+)E", m.group(1))
-            key = ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) if args else None
+            if args:
+                key = ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
+            else:  # a plain kernel's mangled name holds "<length><name>E"
+                key = "" if f"{len(kernel)}{kernel}E" in m.group(1) else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and key is not None:
@@ -293,18 +305,22 @@ def phase_build() -> dict:
         raise RuntimeError(f"kernel libraries not built: {missing}")
     logs = {n: _build.build_log(n) for n in _build.kernel_names()}  # this build's or the cached one's
     stats = [ln.strip() for name, text in logs.items()
-             if name not in ("attention_fused", "conv3x3_fused", "stem_fused")
+             if name not in ("attention_fused", "conv3x3_fused", "stem_fused", *SINGLE_KERNELS)
              for ln in text.splitlines() if "registers" in ln or "spill" in ln]
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
     conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
     stem = {STEM_MMA_KERNEL: ptxas_stats(logs["stem_fused"], STEM_MMA_KERNEL)}
+    single = {k: ptxas_stats(logs[src], k).get("") for src, k in SINGLE_KERNELS.items()}
     log("build", seconds=round(time.time() - t0, 3), built=built,
         kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
-        conv_mma_regs_spills=conv, stem_mma_regs_spills=stem)
+        conv_mma_regs_spills=conv, stem_mma_regs_spills=stem, lap_splat_regs_spills=single)
     bad = {k: v for k, v in {**mma, **conv, **stem}.items()
            if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
     if bad:
         raise AssertionError(f"tensor-core kernels: want 4 instantiations each with 0 spill bytes, got {bad}")
+    bad = {k: v for k, v in single.items() if v is None or v[1] or v[2]}
+    if bad:
+        raise AssertionError(f"LAP and splat kernels: want 0 spill bytes each, got {bad}")
     return logs
 
 
@@ -391,54 +407,76 @@ def phase_kernels(dev) -> dict:
     return summary
 
 
-def phase_lidar_splat(dev) -> dict:
-    """The splat kernel at the agent path's batches against its plain version:
-    exact, and the same in two runs. Seeded clouds (`example_point_cloud`)
-    with hot bins next to the ego, points beyond +-32 m, above
+SPLAT_N = 131072   # points per cloud at the agent path's `max_points`
+SPLAT_BINS = 256   # the agent path's `lidar_resolution_width`
+
+
+def splat_inputs(dev) -> dict:
+    """The splat's inputs, (B=16, N) int32 bin indices on `dev` by cloud
+    kind. "example": seeded `example_point_cloud`s (hot bins next to the
+    ego, consecutive points in one bin, points beyond +-32 m, above
     `max_height_lidar` and below the split plane, points on the bin edges,
-    and padding."""
+    and padding) binned as the agent path bins them; "uniform": every point
+    in a uniformly drawn bin (no hot bin, no run of equal bins)."""
     from diffusiondrive_torch.entry import example_point_cloud
     from diffusiondrive_torch.models.config import TransfuserConfig
-    from diffusiondrive_torch.ops.lidar_splat import _bin_indices, histogram2d, histogram2d_plain
+    from diffusiondrive_torch.ops.lidar_splat import _bin_indices
     from diffusiondrive_torch.ops.preprocessing import pad_point_cloud
 
     cfg = TransfuserConfig()
-    N, bins = 131072, cfg.lidar_resolution_width
+    bins = SPLAT_BINS
     rng = np.random.default_rng(3)
-    clouds = [pad_point_cloud(example_point_cloud(rng, N - 2048 * b, cfg), N) for b in range(16)]
+    clouds = [pad_point_cloud(example_point_cloud(rng, SPLAT_N - 2048 * b, cfg), SPLAT_N) for b in range(16)]
     points = torch.from_numpy(np.stack([p for p, _ in clouds])).to(dev)
     valid = torch.from_numpy(np.stack([v for _, v in clouds])).to(dev)
     keep = valid & (points[..., 2] < cfg.max_height_lidar) & (points[..., 2] > cfg.lidar_split_height)
-    ix, iy = _bin_indices(points[..., :2], keep, cfg.lidar_min_x, cfg.lidar_max_x,
-                          cfg.lidar_min_y, cfg.lidar_max_y, bins)
+    example = _bin_indices(points[..., :2], keep, cfg.lidar_min_x, cfg.lidar_max_x,
+                           cfg.lidar_min_y, cfg.lidar_max_y, bins)
+    uniform = tuple(torch.from_numpy(rng.integers(0, bins, size=(16, SPLAT_N), dtype=np.int32)).to(dev)
+                    for _ in range(2))
+    return {"example": example, "uniform": uniform}
+
+
+def phase_lidar_splat(dev) -> dict:
+    """The splat kernel at the agent path's batches (B=16, 1) against its
+    plain version: exact, and the same bits in two runs; on the agent path's
+    clouds (the `kernel lidar_splat b16` / `b1` rows, the `kernels` line's
+    entry) and on a uniform cloud (`kernel lidar_splat uniform b16` / `b1`)."""
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain, splat_plan
+
+    bins = SPLAT_BINS
     summary = {}
-    for B in (16, 1):
-        bx, by = ix[:B].contiguous(), iy[:B].contiguous()
-        got, again, want = histogram2d(bx, by, bins), histogram2d(bx, by, bins), histogram2d_plain(bx, by, bins)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if err != 0 or not torch.equal(got, again):
-            raise AssertionError(f"lidar_splat B={B}: max abs err {err} (must be 0), "
-                                 f"repeatable {torch.equal(got, again)}")
-        if not torch.equal(want.cpu(), histogram2d_plain(bx.cpu(), by.cpu(), bins)):
-            raise AssertionError(f"lidar_splat B={B}: plain version differs between card and CPU")
-        # library yardstick: one scatter_add_ of ones into a (B*bins^2 + 1) buffer, skipped
-        # points into the last (overflow) bucket, as `histogram2d_jax` does
-        ok = bx >= 0
-        batch = torch.arange(B, device=dev)[:, None] * bins * bins
-        flat = torch.where(ok, batch + bx.long() * bins + by.long(), B * bins * bins).flatten()
-        ones = torch.ones(flat.shape, device=dev)
-        buf = torch.zeros(B * bins * bins + 1, device=dev)
-        nbytes = 8.0 * B * N + 4.0 * B * bins * bins
-        bms, by_what = bound_ms(0.0, nbytes, torch.float32)
-        row = dict(shape=[B, N], bins=bins, points_counted=int(ok.sum().item()),
-                   hottest_bin=int(want.max().item()), max_abs_err=err,
-                   **time_rows({"kernel_ms": lambda: histogram2d(bx, by, bins),
-                                "plain_ms": lambda: histogram2d_plain(bx, by, bins),
-                                "library_ms": lambda: buf.scatter_add_(0, flat, ones)}),
-                   bound_ms=bms, bound_by=by_what)
-        log(f"kernel lidar_splat b{B}", **row)
-        summary[("lidar_splat", B)] = row
+    for kind, (ix, iy) in splat_inputs(dev).items():
+        for B in (16, 1):
+            bx, by = ix[:B].contiguous(), iy[:B].contiguous()
+            got, again, want = histogram2d(bx, by, bins), histogram2d(bx, by, bins), histogram2d_plain(bx, by, bins)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if err != 0 or not torch.equal(got, again):
+                raise AssertionError(f"lidar_splat {kind} B={B}: max abs err {err} (must be 0), "
+                                     f"repeatable {torch.equal(got, again)}")
+            if not torch.equal(want.cpu(), histogram2d_plain(bx.cpu(), by.cpu(), bins)):
+                raise AssertionError(f"lidar_splat {kind} B={B}: plain version differs between card and CPU")
+            # library yardstick: one scatter_add_ of ones into a (B*bins^2 + 1) buffer, skipped
+            # points into the last (overflow) bucket, as `histogram2d_jax` does
+            ok = bx >= 0
+            batch = torch.arange(B, device=dev)[:, None] * bins * bins
+            flat = torch.where(ok, batch + bx.long() * bins + by.long(), B * bins * bins).flatten()
+            ones = torch.ones(flat.shape, device=dev)
+            buf = torch.zeros(B * bins * bins + 1, device=dev)
+            nbytes = 8.0 * B * SPLAT_N + 4.0 * B * bins * bins
+            bms, by_what = bound_ms(0.0, nbytes, torch.float32)
+            plan = splat_plan(B, SPLAT_N, bins, torch.cuda.get_device_properties(dev).multi_processor_count)
+            row = dict(shape=[B, SPLAT_N], bins=bins, cloud=kind, path="segments", plan=plan._asdict(),
+                       points_counted=int(ok.sum().item()), nonzero_bins=int((want > 0).sum().item()),
+                       hottest_bin=int(want.max().item()), max_abs_err=err, same_bits_twice=True,
+                       **time_rows({"kernel_ms": lambda: histogram2d(bx, by, bins),
+                                    "plain_ms": lambda: histogram2d_plain(bx, by, bins),
+                                    "library_ms": lambda: buf.scatter_add_(0, flat, ones)}),
+                       bound_ms=bms, bound_by=by_what)
+            label = f"b{B}" if kind == "example" else f"{kind} b{B}"
+            log(f"kernel lidar_splat {label}", **row)
+            summary[("lidar_splat", B) if kind == "example" else ("lidar_splat", kind, B)] = row
     return summary
 
 
@@ -792,21 +830,37 @@ def phase_agent_path(dev) -> dict:
     return counts
 
 
+LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
+
+
+def lap_costs() -> dict:
+    """The LAP's inputs, (B, 30, 30) float32 numpy costs for B = 8 and 64
+    from one seed: the first half of each batch normal, the second integer
+    costs in [0, 4) (ties, where the tie-break decides)."""
+    rng = np.random.default_rng(30)
+    out = {}
+    for B in (8, 64):
+        costs = rng.normal(size=(B, LAP_N, LAP_N)).astype(np.float32)
+        costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, LAP_N, LAP_N))
+        out[B] = costs
+    return out
+
+
 def phase_lap(dev, build_logs: dict) -> dict:
     """The LAP kernel at n=30, B=8 and B=64, against its plain version on the
-    card (exact) and scipy on the host (total cost)."""
+    card (exact) and scipy on the host (total cost). `critical_steps`: the
+    longest chain of dependent steps over the batch (search steps plus
+    augment hops), counted by the plain version on the card outside the
+    timed window; `ns_per_step` the kernel's time over it."""
     from scipy.optimize import linear_sum_assignment
 
     from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
 
     ptxas = [ln.strip() for ln in build_logs.get("lap", "").splitlines()
              if "registers" in ln or "spill" in ln]
-    n = 30
-    rng = np.random.default_rng(30)
+    n = LAP_N
     summary = {}
-    for B in (8, 64):
-        costs = rng.normal(size=(B, n, n)).astype(np.float32)
-        costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, n, n))  # ties
+    for B, costs in lap_costs().items():
         c = torch.from_numpy(costs).to(dev)
         got, want = batched_linear_sum_assignment(c), linear_sum_assignment_plain(c)
         torch.cuda.synchronize()
@@ -822,6 +876,10 @@ def phase_lap(dev, build_logs: dict) -> dict:
             worst = max(worst, abs(cb[np.arange(n), col].sum(dtype=np.float64) - opt) / max(1.0, abs(opt)))
         if not worst <= 1e-5:
             raise AssertionError(f"lap B={B}: total cost {worst} relative above scipy's optimum")
+        steps = torch.zeros(B, dtype=torch.long, device=dev)
+        if not torch.equal(linear_sum_assignment_plain(c, steps), want):
+            raise AssertionError(f"lap B={B}: the step counter changed the plain version's assignment")
+        critical_steps = int(steps.max().item())
 
         def scipy_host():
             host = c.cpu().numpy()  # the copy and the sync the reference pays every step
@@ -836,11 +894,13 @@ def phase_lap(dev, build_logs: dict) -> dict:
         times = time_rows({"kernel_ms": lambda: batched_linear_sum_assignment(c)})
         plain = time_rows({"plain_ms": lambda: linear_sum_assignment_plain(c)}, iters=1, warmup=1)
         times["host_behind"] += plain.pop("host_behind")
-        row = dict(shape=[B, n, n], ties_in=f"{B - B // 2} of {B} problems", max_abs_err=0, host_syncs=0,
-                   scipy_max_rel_cost_gap=worst,
+        row = dict(shape=[B, n, n], ties_in=f"{B - B // 2} of {B} problems", path="warp_redux",
+                   max_abs_err=0, host_syncs=0, scipy_max_rel_cost_gap=worst,
                    **times, **plain, library_ms=library_ms, library="scipy.optimize.linear_sum_assignment on the host, "
                    "with the device-to-host copy (not a PyTorch call)",
-                   bound_ms=bms, bound_by=by, dependent_warp_argmins=n * (n + 1), ptxas=ptxas)
+                   bound_ms=bms, bound_by=by, critical_steps=critical_steps,
+                   mean_steps=float(steps.float().mean().item()),
+                   ns_per_step=times["kernel_ms"] * 1e6 / critical_steps, ptxas=ptxas)
         log(f"kernel lap b{B}", **row)
         summary[("lap", B)] = row
     return summary
@@ -1195,11 +1255,17 @@ def main() -> int:
                         "max_abs_err": max(errs), "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "pass": True,
-                        **{k: row[k] for k in ("library", "shape", "path", "library_conv_ms") if k in row}})
+                        **{k: row[k] for k in ("library", "shape", "path", "library_conv_ms", "critical_steps",
+                                               "ns_per_step", "plan") if k in row}})
     kernels[0]["rows"] = {label: {k: summary[("stem", label, bf)][k] for k in (
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_conv_ms", "path")} for label, _ in STEM_ROWS}
     kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part)][k] for k in (
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "path")} for label in ("image", "lidar") for part in ("fwd", "dx")}
+    kernels[2]["rows"] = {" ".join(map(str, k[1:])): {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+                          for k, v in summary.items() if k[0] == "lidar_splat"}
+    kernels[3]["rows"] = {f"b{k[1]}": {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                                                         "critical_steps", "ns_per_step")}
+                          for k, v in summary.items() if k[0] == "lap"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

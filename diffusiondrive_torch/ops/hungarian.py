@@ -21,6 +21,7 @@ tensor takes the plain version, a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,13 +31,17 @@ _INF = 1e18
 MAX_N = 31  # one warp: lane 0 is the virtual column, lanes 1..n the columns
 
 
-def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
+def linear_sum_assignment_plain(cost: torch.Tensor, steps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: (B, n, n) costs -> (B, n) int32 `col`, with
     ``col[b, i]`` the column assigned to row i, minimising the total cost.
 
     The search loop leaves as soon as every problem has reached a free
     column; JAX runs a fixed n+1 trips with the finished problems masked,
     which changes nothing in the result.
+
+    `steps`, if given, is a (B,) int64 tensor on the cost's device: each
+    problem's search steps and augment hops are added to it, the length of
+    its chain of dependent steps in the kernel. It changes nothing else.
     """
     if cost.dim() != 3 or cost.shape[1] != cost.shape[2]:
         raise ValueError(f"linear_sum_assignment: expects (B, n, n), got {tuple(cost.shape)}")
@@ -61,6 +66,8 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
         j0 = torch.zeros(B, dtype=torch.long, device=dev)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         for _ in range(n + 1):  # at most n+1 columns join the alternating tree
+            if steps is not None:
+                steps += ~done
             live = ~done[:, None]
             used2 = used.clone()
             used2[batch, j0] = True
@@ -87,6 +94,8 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
         # augment along `way` back to the virtual column: at most n+1 hops
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         for _ in range(n + 1):
+            if steps is not None:
+                steps += ~done
             j1 = way[batch, j0]
             p[batch, j0] = torch.where(done, p[batch, j0], p[batch, j1])
             j0 = torch.where(done, j0, j1)

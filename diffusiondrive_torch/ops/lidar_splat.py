@@ -16,15 +16,43 @@ bins agree bit for bit with the JAX package's.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from diffusiondrive_torch.ops._build import load_library
 
-# Shared memory of one block's band of the histogram, in int32 cells (32 KB).
-_BAND_CELLS = 8192
-_MAX_SMEM = 232448  # bytes a block may use on Hopper
+_MAX_SMEM = 232448     # bytes of shared memory a block may use on Hopper
+_MAX_SEGMENT = 65535   # points a block counts at once: a count fits its 16-bit half
+
+
+class SplatPlan(NamedTuple):
+    """How `csrc/lidar_splat.cu` covers a (B, N) -> (B, bins, bins) call:
+    `bands` bands of `band_rows` histogram rows (the last may be shorter),
+    the B*N points cut into `segments` of `segment` points, one block per
+    segment and band, each with `smem` bytes of 16-bit counts."""
+    bands: int
+    band_rows: int
+    segments: int
+    segment: int
+    smem: int
+
+
+def splat_plan(B: int, N: int, bins: int, sms: int) -> SplatPlan:
+    """The splat kernel's launch plan: as few bands as the shared memory
+    allows (2-byte counts), and enough segments of at most 65535 points that
+    every one of `sms` SMs gets a block."""
+    max_rows = _MAX_SMEM // (2 * bins)
+    if max_rows < 1:
+        raise ValueError(f"histogram2d: bins={bins} leaves no row in {_MAX_SMEM} bytes of shared memory")
+    bands = -(-bins // max_rows)
+    band_rows = -(-bins // bands)
+    total = B * N
+    if total == 0:
+        return SplatPlan(bands, band_rows, 1, 0, 16 * -(-band_rows * bins // 8))
+    blocks = max(-(-total // _MAX_SEGMENT), -(-sms // bands))  # per band
+    segment = -(-total // blocks)
+    return SplatPlan(bands, band_rows, -(-total // segment), segment, 16 * -(-band_rows * bins // 8))
 
 
 def _bin_indices(points_xy: torch.Tensor, valid: torch.Tensor, min_x: float, max_x: float,
@@ -59,7 +87,7 @@ def histogram2d_plain(ix: torch.Tensor, iy: torch.Tensor, bins: int = 256) -> to
 def _lib():
     fn = load_library("lidar_splat").ddt_lidar_splat
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,7 +96,9 @@ def histogram2d(ix: torch.Tensor, iy: torch.Tensor, bins: int = 256) -> torch.Te
     """(B, N) int32 bin indices (-1 = skip) -> (B, bins, bins) float32 counts.
 
     A CPU tensor takes `histogram2d_plain`; a CUDA tensor launches the kernel
-    (one launch for all B clouds) or raises.
+    (one launch for all B clouds, after a memset of the output on the same
+    stream) or raises. Counts must stay below 2**24, where float32 holds
+    every integer: the kernel merges its partial counts by float atomics.
     """
     if ix.device.type == "cpu":
         return histogram2d_plain(ix, iy, bins)
@@ -84,12 +114,12 @@ def histogram2d(ix: torch.Tensor, iy: torch.Tensor, bins: int = 256) -> torch.Te
     if ix.device.type != "cuda":
         raise RuntimeError(f"histogram2d: no kernel for device {ix.device}")
     B, N = ix.shape
-    band_rows = max(1, min(bins, _BAND_CELLS // bins))
-    if not 0 < B <= 65535 or 4 * band_rows * bins > _MAX_SMEM or N >= 2 ** 24:
+    if not (0 < B <= 65535 and 0 < bins <= 65535 and N < 2 ** 24):
         raise ValueError(f"histogram2d: B={B}, N={N}, bins={bins} outside the kernel's range")
+    plan = splat_plan(B, N, bins, torch.cuda.get_device_properties(ix.device).multi_processor_count)
     out = torch.empty((B, bins, bins), device=ix.device, dtype=torch.float32)
-    err = _lib()(ix.data_ptr(), iy.data_ptr(), out.data_ptr(), B, N, bins, band_rows,
-                 torch.cuda.current_stream(ix.device).cuda_stream)
+    err = _lib()(ix.data_ptr(), iy.data_ptr(), out.data_ptr(), B, N, bins, plan.bands, plan.band_rows,
+                 plan.segment, plan.smem, torch.cuda.current_stream(ix.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"histogram2d: CUDA kernel launch failed (cudaError {err})")
     histogram2d.launches += 1

@@ -1,7 +1,8 @@
 """Time one kernel family of this checkout against another checkout's, on one card.
 
 Both checkouts' kernels keep one Python interface (`ops/attention_fused.py`,
-`ops/conv_fused.py`, `ops/stem_fused.py`), so one timing loop drives either. Each checkout runs
+`ops/conv_fused.py`, `ops/stem_fused.py`, `ops/hungarian.py`,
+`ops/lidar_splat.py`), so one timing loop drives either. Each checkout runs
 in a process of its own that imports its `diffusiondrive_torch` (built there
 from its own sources), in the order ref, this, this, ref, so a drift of the
 card over the call shows as a difference between the two runs of one
@@ -18,7 +19,11 @@ float32, without and with a p=0.1 keep mask. `--kernel conv3x3`
 `conv3x3_train` forward and input gradient at B=64 (`CONV_TRAIN`), bf16
 and float32. `--kernel stem` (`phase_kernels`): the fused stem at
 `STEM_ROWS` (camera and lidar at B=16, the camera at B=1), bf16 and
-float32.
+float32. `--kernel lap` (`phase_lap`): the LAP at n=30, B=8 and 64, on
+`lap_costs` (half of each batch with ties); exact against the plain
+version. `--kernel splat` (`phase_lidar_splat`): the splat at N=131072,
+B=16 and 1, on `splat_inputs` (the agent path's example clouds and a
+uniform cloud); exact against the plain version, the same bits twice.
 
 Prints the card's name and power limit, then one JSON line per run: the
 kernel ms of each row (attention: summed over D for each direction, dtype
@@ -152,7 +157,39 @@ def stem_cases(smoke, dev, root: Path):
             yield {"dtype": str(dtype).replace("torch.", ""), "row": f"stem {label}"}, {"kernel": fn}
 
 
-KERNELS = {"attention": attention_cases, "conv3x3": conv3x3_cases, "stem": stem_cases}
+def lap_cases(smoke, dev, root: Path):
+    import torch
+
+    from diffusiondrive_torch.ops import hungarian as hg
+
+    if not Path(hg.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {hg.__file__}, not the checkout at {root}")
+    for B, costs in smoke.lap_costs().items():
+        c = torch.from_numpy(costs).to(dev)
+        if not torch.equal(hg.batched_linear_sum_assignment(c), hg.linear_sum_assignment_plain(c)):
+            raise AssertionError(f"lap B={B}: kernel assignment differs from the plain version's")
+        yield {"row": f"lap b{B}"}, {"kernel": lambda: hg.batched_linear_sum_assignment(c)}
+
+
+def splat_cases(smoke, dev, root: Path):
+    import torch
+
+    from diffusiondrive_torch.ops import lidar_splat as ls
+
+    if not Path(ls.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {ls.__file__}, not the checkout at {root}")
+    bins = smoke.SPLAT_BINS
+    for kind, (ix, iy) in smoke.splat_inputs(dev).items():
+        for B in (16, 1):
+            bx, by = ix[:B].contiguous(), iy[:B].contiguous()
+            got, again = ls.histogram2d(bx, by, bins), ls.histogram2d(bx, by, bins)
+            if not (torch.equal(got, ls.histogram2d_plain(bx, by, bins)) and torch.equal(got, again)):
+                raise AssertionError(f"lidar_splat {kind} B={B}: not exact, or not the same bits twice")
+            yield {"row": f"lidar_splat {kind} b{B}"}, {"kernel": lambda: ls.histogram2d(bx, by, bins)}
+
+
+KERNELS = {"attention": attention_cases, "conv3x3": conv3x3_cases, "stem": stem_cases,
+           "lap": lap_cases, "splat": splat_cases}
 
 
 def worker(root: Path, kernel: str) -> list:

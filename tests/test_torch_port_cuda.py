@@ -15,7 +15,7 @@ from diffusiondrive_torch.ops.attention_fused import (
 from diffusiondrive_torch.ops.conv_fused import (
     conv3x3_kernel, conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
-from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain
+from diffusiondrive_torch.ops.lidar_splat import histogram2d, histogram2d_plain, splat_plan
 from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_kernel, stem_plain
 
 
@@ -180,37 +180,96 @@ def test_cuda_stem_takes_the_module_path_where_the_kernel_does_not_apply(cuda_de
     _close(got.cpu(), want, 1e-4, f"stem C={C}")
 
 
+def _one_bin(B, N, bins, cell=(5, 7)):
+    return (torch.full((B, N), cell[0], dtype=torch.int32), torch.full((B, N), cell[1], dtype=torch.int32))
+
+
+def _splat_case(case, sms):
+    """(ix, iy, bins) of one card case of the splat, on the CPU."""
+    g = torch.Generator().manual_seed(4)
+    kind, B, N, bins = case
+    if kind == "random":  # a hot bin, skipped points (either index -1)
+        ix = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
+        iy = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
+        ix[:, : N // 3], iy[:, : N // 3] = 5, 7
+        return ix, iy, bins
+    if kind == "one_bin":  # every point of the cloud in one bin
+        return (*_one_bin(B, N, bins), bins)
+    if kind == "one_bin_per_sm":  # N/sms points a segment: at and around 65535 a block
+        return (*_one_bin(B, N * sms, bins), bins)
+    if kind == "hot_across_segments":  # one hot bin across the first segments' boundaries
+        ix = torch.randint(0, bins, (B, N), generator=g, dtype=torch.int32)
+        iy = torch.randint(0, bins, (B, N), generator=g, dtype=torch.int32)
+        seg = splat_plan(B, N, bins, sms).segment
+        ix[0, seg - 300: 3 * seg + 300], iy[0, seg - 300: 3 * seg + 300] = 100, 200
+        return ix, iy, bins
+    if kind == "skipped":  # every point skipped
+        return torch.full((B, N), -1, dtype=torch.int32), torch.randint(0, bins, (B, N), generator=g,
+                                                                         dtype=torch.int32), bins
+    raise ValueError(kind)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,bins", [(3, 5000, 256), (2, 1000, 64), (1, 0, 16), (2, 777, 300)])
-def test_cuda_histogram_matches_plain_version_exactly(cuda_device, B, N, bins):
-    """Counts are integers: the kernel equals its plain version exactly, in
-    every run. Covers a hot bin, skipped points (either index -1), an empty
-    cloud and a grid whose last band of rows is partial (bins=300)."""
-    g = torch.Generator().manual_seed(bins)
-    ix = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
-    iy = torch.randint(-1, bins, (B, N), generator=g, dtype=torch.int32)
-    ix[:, : N // 3], iy[:, : N // 3] = 5, 7
+@pytest.mark.parametrize("case", [
+    ("random", 3, 5000, 256), ("random", 2, 1000, 64), ("random", 1, 0, 16), ("random", 2, 777, 300),
+    ("random", 2, 3001, 512), ("random", 16, 131072, 256), ("random", 1, 131072, 16),
+    ("one_bin", 1, 65535, 256), ("one_bin", 1, 65536, 256), ("one_bin", 1, 65537, 256),
+    ("one_bin_per_sm", 1, 65535, 16), ("one_bin_per_sm", 1, 65536, 16), ("one_bin_per_sm", 1, 65537, 16),
+    ("hot_across_segments", 1, 131072, 256), ("skipped", 2, 4096, 256)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_cuda_histogram_matches_plain_version_exactly(cuda_device, case):
+    """Counts are integers: the kernel equals its plain version exactly, the
+    same bits in two calls, one launch a call. Covers a hot bin, skipped
+    points (either index -1, or all), an empty cloud, one band of 300 rows
+    and three bands at 512, a bin of 65535-65537 points in one cloud and of
+    65535-65537 points a block (a segment's 16-bit counts at and around their
+    limit), and a hot bin across segment boundaries."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ix, iy, bins = _splat_case(case, sms)
+    B, N = ix.shape
+    plan = splat_plan(B, N, bins, sms)
+    if case[0] == "one_bin_per_sm":
+        assert plan.segment == 65535 if case[2] == 65535 else plan.segment < 65535
     ix, iy = ix.to(cuda_device), iy.to(cuda_device)
     want = histogram2d_plain(ix, iy, bins)
+    torch.testing.assert_close(want.cpu(), histogram2d_plain(ix.cpu(), iy.cpu(), bins), rtol=0, atol=0)
+    got = []
     for _ in range(2):
-        got = histogram2d(ix, iy, bins)
+        before = histogram2d.launches
+        got.append(histogram2d(ix, iy, bins))
         torch.cuda.synchronize()
-        assert got.shape == (B, bins, bins) and torch.equal(got, want)
+        assert histogram2d.launches == before + 1
+        assert got[-1].shape == (B, bins, bins) and torch.equal(got[-1], want)
+    assert torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
     with pytest.raises(TypeError, match="int32"):
         histogram2d(ix.long(), iy.long(), bins)
 
 
+def _lap_costs(kind, B, n, rng):
+    if kind == "mixed":  # half normal, half integer costs in [0, 4): ties
+        costs = rng.normal(size=(B, n, n)).astype(np.float32)
+        costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, n, n))
+        return costs
+    if kind == "signed_zero":  # -0.0 and +0.0 tie as floats; the kernel keys them alike
+        return rng.choice(np.array([-0.0, 0.0, -0.0, 0.0, 1.0, -1.0], np.float32), size=(B, n, n))
+    if kind == "equal":
+        return np.full((B, n, n), 2.5, np.float32)
+    if kind == "sentinel":  # huge finite costs below the 1e18 sentinel
+        return rng.uniform(1e17, 9e17, size=(B, n, n)).astype(np.float32)
+    raise ValueError(kind)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(1, 3), (7, 5), (30, 64), (31, 9)])
-def test_cuda_assignment_equals_plain_version_and_scipy(cuda_device, n, B):
+@pytest.mark.parametrize("kind", ["mixed", "signed_zero", "equal", "sentinel"])
+@pytest.mark.parametrize("n,B", [(1, 3), (7, 5), (30, 64), (31, 9), (30, 1), (31, 5)])
+def test_cuda_assignment_equals_plain_version_and_scipy(cuda_device, n, B, kind):
     """The LAP kernel gives the plain version's assignment exactly (ties
-    included: the second half of the batch has integer costs in [0, 4)) and
-    scipy's optimal total cost."""
+    included: integer costs, signed zeros, all-equal costs) and scipy's
+    optimal total cost, also next to the sentinel and at batches that are
+    no multiple of the kernel's problems per block."""
     from scipy.optimize import linear_sum_assignment
 
-    rng = np.random.default_rng(n)
-    costs = rng.normal(size=(B, n, n)).astype(np.float32)
-    costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, n, n))
+    costs = _lap_costs(kind, B, n, np.random.default_rng(n))
     c = torch.from_numpy(costs).to(cuda_device)
     before = batched_linear_sum_assignment.launches
     got = batched_linear_sum_assignment(c)

@@ -28,6 +28,8 @@ def _costs(kind, B_, n, rng):
         return np.ones((B_, n, n), np.float32)
     if kind == "huge":  # large finite costs must not collide with the 1e18 sentinel
         return (rng.uniform(size=(B_, n, n)) * 1e9).astype(np.float32)
+    if kind == "signed_zero":  # -0.0 and +0.0 compare equal: the tie-break must not see the sign
+        return rng.choice(np.array([-0.0, 0.0, -0.0, 0.0, 1.0, -1.0], np.float32), size=(B_, n, n))
     # "mixed": tiny diagonal in a sea of huge costs
     c = np.full((B_, n, n), 1e8, np.float32)
     c[:, np.arange(n), np.arange(n)] = 1e-6
@@ -35,7 +37,7 @@ def _costs(kind, B_, n, rng):
 
 
 @pytest.mark.parametrize("n,B_", [(1, 3), (2, 5), (7, 16), (30, 16), (31, 4)])
-@pytest.mark.parametrize("kind", ["normal", "ties", "ones", "huge", "mixed"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "ones", "huge", "mixed", "signed_zero"])
 def test_plain_assignment_equals_jax_and_pallas_interpret(n, B_, kind):
     """Equal assignments, exactly, to JAX's solver and its Pallas kernel in
     interpret mode; optimal total cost against scipy."""
@@ -49,6 +51,25 @@ def test_plain_assignment_equals_jax_and_pallas_interpret(n, B_, kind):
         r, cs = scipy_lsa(c)
         np.testing.assert_allclose(c[np.arange(n), col].sum(dtype=np.float64),
                                    c[r, cs].sum(dtype=np.float64), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 30])
+def test_plain_step_counter_counts_the_chain_and_changes_nothing(n):
+    """The optional step counter adds each problem's search steps and augment
+    hops and leaves the assignment as it is. A zero diagonal with positive
+    costs elsewhere takes one search step and one augment hop a row: 2n."""
+    rng = np.random.default_rng(n)
+    diag = rng.uniform(0.5, 2.0, size=(3, n, n)).astype(np.float32)
+    diag[:, np.arange(n), np.arange(n)] = 0.0
+    steps = torch.zeros(3, dtype=torch.long)
+    col = linear_sum_assignment_plain(torch.from_numpy(diag), steps)
+    np.testing.assert_array_equal(col.numpy(), np.tile(np.arange(n, dtype=np.int32), (3, 1)))
+    assert steps.tolist() == [2 * n] * 3
+    costs = torch.from_numpy(np.concatenate([_costs("normal", 2, n, rng), _costs("ties", 2, n, rng)]))
+    steps = torch.full((4,), 7, dtype=torch.long)
+    torch.testing.assert_close(linear_sum_assignment_plain(costs, steps), linear_sum_assignment_plain(costs),
+                               rtol=0, atol=0)
+    assert (steps >= 7 + 2 * n).all() and (steps <= 7 + n * (2 * n + 2)).all()
 
 
 def test_assignment_wrapper_takes_the_plain_version_on_cpu_and_launches_nothing():

@@ -39,7 +39,7 @@ from diffusiondrive_torch.entry import example_agent_input, example_point_cloud
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 from diffusiondrive_torch.ops import lidar_splat
-from diffusiondrive_torch.ops.lidar_splat import _bin_indices, histogram2d, histogram2d_plain
+from diffusiondrive_torch.ops.lidar_splat import _bin_indices, histogram2d, histogram2d_plain, splat_plan
 from diffusiondrive_torch.ops.preprocessing import lidar_bev, pad_point_cloud, stitch_cameras
 from diffusiondrive_torch.ops.sampling import resize_bilinear_no_aa
 from diffusiondrive_torch.utils.port_jax import jax_to_state_dict, load_jax_variables
@@ -357,6 +357,25 @@ def test_cpu_histogram_takes_the_plain_version_and_counts_no_launch(monkeypatch)
     pts, valid = _clouds(2, seed=7)
     lidar_bev(torch.from_numpy(pts), torch.from_numpy(valid))
     assert calls == [1] and histogram2d.launches == launches
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("bins", [16, 64, 256, 300, 512])
+def test_splat_plan_covers_every_row_and_point_within_the_card(bins, B):
+    """The splat kernel's launch plan at the agent path's N: its bands cover
+    every histogram row once, a block's band fits the H100's 227 KB of
+    shared memory as 16-bit counts, no segment can carry a 16-bit count
+    over (<= 65535 points), the segments cover all B*N points, and the grid
+    gives every one of the 132 SMs a block."""
+    N = 131072
+    plan = splat_plan(B, N, bins, sms=132)  # an H100 SXM
+    rows = [r for band in range(plan.bands) for r in range(band * plan.band_rows,
+                                                           min(bins, (band + 1) * plan.band_rows))]
+    assert rows == list(range(bins))
+    assert 2 * plan.band_rows * bins <= plan.smem <= 232448 and plan.smem % 16 == 0
+    assert 0 < plan.segment <= 65535
+    assert (plan.segments - 1) * plan.segment < B * N <= plan.segments * plan.segment
+    assert plan.bands * plan.segments >= 132
 
 
 def test_histogram_off_the_cpu_reaches_the_kernel_or_raises():
