@@ -63,6 +63,31 @@ line per phase, then one JSON line per kernel summary, then the result:
                ms on its own line, peak memory. The counters are set to 0
                before this phase and must read 1 splat, 2 stem and 12 conv3x3
                launches per agent forward (no attention launch) after it.
+5b. ``pdm_score_path`` NAVSIM scoring through the port's runner
+               (`evaluate/runner.py:run_pdm_score_evaluation`): 2 batches of
+               32 scenes (the runner's default batch size) after one warm-up
+               batch; the bf16 raw-sensor agent at full width and depth
+               (seeded weights, default kernels; seeded
+               `entry.example_agent_input` sensors held in memory), then
+               both proposals of each scene (PDM-Closed's and the agent's)
+               re-simulated and scored on the card; metric caches at the
+               caching pipeline's padded shapes (96 tracks, 256 polygons of
+               48 vertices: `pdm_road_cache`, a straight four-lane road with
+               seeded agents), saved by `MetricCache.save` and read back by
+               `MetricCacheLoader`. Fails unless every row is valid and the
+               runner logged no error (a quarantined token or the per-token
+               fallback), the counters (0 just before the counted run) read
+               exactly 1 splat, 2 stem and 12 conv3x3 launches per batch,
+               the CSV written by `write_score_csv` reads back with `csv`,
+               the card's float32 scores of the first batch equal the CPU's
+               on its first 8 scenes (discrete sub-scores and time indices
+               equal, score and progress within 1e-4 x max(1, |CPU|)), both
+               golden scenarios of `tests/test_golden_scores.py` hold on the
+               card, and simulate and score make no host sync. Prints the
+               runner's scenes/s (host clock, end to end with the agent),
+               the simulate and score device ms of a 32-scene batch
+               (`time_rows`, and the profiler's busy ms), their launches,
+               host syncs per batch and peak memory, each beside the card.
 6. ``kernel lap b8`` / ``b64`` the batched Hungarian kernel at n=30 (float32
                costs from a seed, half of each batch integer costs in [0, 4)
                for ties): its assignment equals the plain version's on the
@@ -830,6 +855,405 @@ def phase_agent_path(dev) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# PDM scoring: scenes, caches, golden scenarios (also used by the card tests)
+# --------------------------------------------------------------------------- #
+
+PDM_SCENES = 32      # scenes a batch: the runner's default batch_size
+PDM_BATCHES = 2
+PDM_OBJECTS = 96     # track slots of the metric-caching pipeline (`max_objects`)
+PDM_POLYGONS = 256   # drivable polygons (`max_polygons`), each of
+PDM_VERTICES = 48    # `ring_pad` vertices
+PDM_LOCAL_MAPS = 26  # one occupancy map per 2 of the 50 samples (40 poses + TTC lookahead), + 1
+PDM_CPU_SCENES = 8   # scenes of the batch the CPU scores again (the card's rows of a 32-scene batch)
+PDM_TOL = 1e-4       # card vs CPU: score, progress_raw, progress_normalized (x max(1, |CPU|))
+PDM_FLOATS = ("score", "progress_raw", "progress_normalized")
+LANE_W = 3.5
+
+
+def _strip(x0, x1, y0, y1, n=PDM_VERTICES // 2):
+    """A rectangle as a ring of 2n vertices: n along y0 (x0 -> x1), n back along y1."""
+    xs = np.linspace(x0, x1, n)
+    return np.concatenate([np.stack([xs, np.full(n, y0)], -1), np.stack([xs[::-1], np.full(n, y1)], -1)])
+
+
+def pdm_road_cache(token: str, seed: int):
+    """A metric cache at the metric-caching pipeline's padded shapes: a
+    straight four-lane road (two lanes each way, 25 m segments from -25 to
+    175 m ahead: lanes, roadblocks, an intersection with its lane
+    connectors, a car park; 41 polygons, the rest of the 256 padding) and
+    24-64 seeded agents in the 96 track slots (vehicles in the lanes, some
+    stopped and some oncoming; pedestrians and static objects at the kerb),
+    forecast at constant velocity; the ego in the right lane of its
+    direction at 4-12 m/s; PDM-Closed's trajectory straight on at that speed;
+    the route lane's centerline every metre."""
+    from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+    from diffusiondrive_torch.common.enums import MapLayer, StateIndex
+    from diffusiondrive_torch.evaluate.metric_cache import MetricCache
+    from diffusiondrive_torch.evaluate.observation import (
+        DrivableAreaArrays, TrackArrays, constant_velocity_forecast, pad_rings)
+
+    rng = np.random.default_rng(seed)
+    origin = np.array([1000.0 + 37.0 * seed, 500.0 - 11.0 * seed])
+    rings, layers, route = [], [], []
+
+    def add(ring, layer, on_route=False):
+        rings.append(ring + origin)
+        layers.append(layer)
+        route.append(on_route)
+
+    for seg in range(8):
+        x0, x1 = -25.0 + 25.0 * seg, 25.0 * seg
+        add(_strip(x0, x1, -2 * LANE_W, 2 * LANE_W), MapLayer.INTERSECTION if seg == 5 else MapLayer.ROADBLOCK)
+        for lane in range(4):
+            y0 = (lane - 2) * LANE_W
+            layer = MapLayer.LANE_CONNECTOR if seg == 5 else MapLayer.LANE
+            add(_strip(x0, x1, y0, y0 + LANE_W), layer, on_route=(lane == 2))
+    add(_strip(30.0, 70.0, 2 * LANE_W, 2 * LANE_W + 25.0), MapLayer.CARPARK_AREA)
+    polygons = np.full((PDM_POLYGONS, PDM_VERTICES, 2), 1e6, np.float32)
+    polygons[:len(rings)] = pad_rings(rings, PDM_VERTICES)
+    valid = np.arange(PDM_POLYGONS) < len(rings)
+    layer_arr = np.zeros(PDM_POLYGONS, np.int32)
+    layer_arr[:len(rings)] = layers
+    route_arr = np.zeros(PDM_POLYGONS, bool)
+    route_arr[:len(rings)] = route
+    drivable = DrivableAreaArrays(polygons=polygons, valid=valid, layers=layer_arr, on_route=route_arr)
+
+    O, n = PDM_OBJECTS, int(rng.integers(24, 65))
+    boxes = np.full((O, 5), 1e6)
+    boxes[:, 2] = 0.0
+    vel = np.zeros((O, 2))
+    is_agent = np.zeros(O, bool)
+    for o in range(n):
+        kind = rng.choice(3, p=[0.7, 0.2, 0.1])
+        if kind == 0:   # vehicle in a lane, off the ego's start
+            lane = int(rng.integers(4))
+            x = rng.uniform(-20.0, 160.0)
+            if lane == 2 and -10.0 < x < 12.0:
+                x += 25.0
+            heading = 0.0 if lane >= 2 else np.pi
+            speed = 0.0 if rng.uniform() < 0.2 else rng.uniform(2.0, 14.0)
+            boxes[o] = (x, (lane - 2 + 0.5) * LANE_W + rng.normal(0, 0.2), heading + rng.normal(0, 0.02),
+                        rng.uniform(4.3, 5.2), rng.uniform(1.8, 2.1))
+            is_agent[o] = True
+        else:           # pedestrian (walking) or static object at the kerb
+            side = rng.choice([-1.0, 1.0])
+            heading = rng.choice([0.0, np.pi])
+            speed = rng.uniform(0.0, 1.5) if kind == 1 else 0.0
+            boxes[o] = (rng.uniform(-20.0, 160.0), side * (2 * LANE_W + rng.uniform(0.3, 1.5)), heading,
+                        0.6 if kind == 1 else 1.0, 0.6 if kind == 1 else 1.0)
+            is_agent[o] = kind == 1
+        vel[o] = speed * np.cos(boxes[o, 2]), speed * np.sin(boxes[o, 2])
+    boxes[:n, :2] += origin
+    obj_valid = np.arange(O) < n
+    sampling = TrajectorySampling(num_poses=40, interval_length=0.1)
+    poses, g2l = constant_velocity_forecast(boxes, vel, obj_valid, obj_valid, sampling, observation_samples=50)
+    speeds = np.hypot(vel[:, 0], vel[:, 1]).astype(np.float32)
+    tracks = TrackArrays(poses=poses, extents=np.where(obj_valid[:, None], boxes[:, 3:5], 1.0).astype(np.float32),
+                         valid=obj_valid, headings=np.where(obj_valid, boxes[:, 2], 0.0).astype(np.float32),
+                         is_agent=is_agent, is_red_light=np.zeros(O, bool), is_stopped=speeds <= 5e-2,
+                         previously_collided=np.zeros(O, bool), global_to_local=g2l, speeds=speeds)
+
+    v0 = rng.uniform(4.0, 12.0)
+    times = np.arange(41) * 0.1
+    pdm_poses = np.stack([origin[0] + v0 * times, np.full(41, origin[1] + 0.5 * LANE_W), np.zeros(41)], -1)
+    initial = np.zeros(StateIndex.size())
+    initial[StateIndex.STATE_SE2] = pdm_poses[0]
+    initial[StateIndex.VELOCITY_X] = v0
+    xs = np.arange(-25.0, 176.0)
+    centerline = (np.stack([xs, np.full(len(xs), 0.5 * LANE_W)], -1) + origin).astype(np.float32)
+    return MetricCache(token=token, log_name="chip_smoke_road", pdm_poses=pdm_poses, pdm_times=times,
+                       initial_state=initial, tracks=tracks, drivable=drivable, centerline=centerline,
+                       route_lane_ids=[f"lane_{seg}_2" for seg in range(8)])
+
+
+def golden_scenarios():
+    """The two scenarios of `tests/test_golden_scores.py` as a batch of two
+    scenes in `score_proposals`' argument order (numpy): (a) a clean 10 m/s
+    drive tailgating a 9 m/s lead car 12 m ahead, both proposals; (b) 10 and
+    2 m/s towards a parked car 20 m ahead. A straight 16 m corridor (a
+    roadblock and an on-route lane), 4 track slots, 26 local maps."""
+    from diffusiondrive_torch.common.enums import MapLayer, StateIndex
+
+    def straight(v):
+        st = np.zeros((41, StateIndex.size()), np.float32)
+        st[:, StateIndex.X] = v * 0.1 * np.arange(41)
+        st[:, StateIndex.VELOCITY_X] = v
+        return st
+
+    def scene(box, velocity, speeds):
+        poses = np.full((PDM_LOCAL_MAPS, 4, 3), 1e6, np.float32)
+        poses[..., 2] = 0.0
+        for li in range(PDM_LOCAL_MAPS):
+            poses[li, 0] = (box[0] + velocity[0] * li * 0.2, box[1] + velocity[1] * li * 0.2, box[2])
+        extents = np.ones((4, 2), np.float32)
+        extents[0] = box[3:]
+        valid = np.arange(4) < 1
+        rect = np.array([[-20, -8], [220, -8], [220, 8], [-20, 8]], np.float32)
+        polys = np.full((4, 8, 2), 1e6, np.float32)
+        polys[:2, :4], polys[:2, 4:] = rect, rect[3]
+        x = np.linspace(-20, 220, 121)
+        return (np.stack([straight(v) for v in speeds]), poses, extents, valid, valid.copy(),
+                np.zeros(4, bool), ~valid | (np.hypot(*velocity) <= 5e-2), np.zeros(4, bool),
+                np.arange(52, dtype=np.int32) // 2, polys, np.arange(4) < 2,
+                np.array([MapLayer.ROADBLOCK, MapLayer.LANE, 0, 0], np.int32), np.array([False, True, False, False]),
+                np.stack([x, np.zeros_like(x)], -1).astype(np.float32))
+
+    scenes = [scene((12.0, 0.0, 0.0, 4.5, 2.0), (9.0, 0.0), (10.0, 10.0)),
+              scene((20.0, 0.0, 0.0, 4.5, 2.0), (0.0, 0.0), (10.0, 2.0))]
+    return [np.stack(a) for a in zip(*scenes)]
+
+
+def check_golden(out) -> dict:
+    """`tests/test_golden_scores.py`'s values on a `ScorerOutput` of
+    `golden_scenarios()` (numpy); raises on a miss."""
+    want = {"score": [[7 / 12, 7 / 12], [0.0, 1.0]], "ttc_time_idcs": [[40.0, 40.0], [5.0, np.inf]],
+            "collision_time_idcs": [[np.inf, np.inf], [14.0, np.inf]], "ttc": [[0.0, 0.0], [0.0, 1.0]],
+            "no_at_fault_collisions": [[1.0, 1.0], [0.0, 1.0]], "progress_raw": [[40.0, 40.0], [40.0, 8.0]]}
+    tol = {"score": 1e-5, "progress_raw": 0.05}
+    for k, v in want.items():
+        got = np.asarray(getattr(out, k), np.float64)
+        if not np.allclose(got, v, atol=tol.get(k, 0.0), rtol=0.0):
+            raise AssertionError(f"golden scenarios: {k} {got.tolist()} != {v}")
+    return {k: [[v if np.isfinite(v) else "inf" for v in row] for row in np.asarray(getattr(out, k)).tolist()]
+            for k in ("score", "ttc_time_idcs", "collision_time_idcs")}
+
+
+def pdm_outputs_match(name: str, got, want) -> dict:
+    """Card vs CPU `ScorerOutput`s (numpy): every discrete sub-score equal,
+    `PDM_FLOATS` within PDM_TOL x max(1, max |CPU|); returns the float errors."""
+    errs = {}
+    for k in got._fields:
+        g, w = np.asarray(getattr(got, k), np.float64), np.asarray(getattr(want, k), np.float64)
+        if k in PDM_FLOATS:
+            errs[k] = float(np.abs(g - w).max())
+            limit = PDM_TOL * max(1.0, float(np.abs(w).max()))
+            if not errs[k] <= limit:
+                raise AssertionError(f"{name} {k}: max abs err {errs[k]} > {limit}")
+        elif not np.array_equal(g, w):
+            bad = np.argwhere(g != w)[:4].tolist()
+            raise AssertionError(f"{name} {k}: differs at {bad}")
+    return errs
+
+
+def _device_kernels(fn, top: int = 4):
+    """(kernels `fn` runs on the card, their busy ms: the union of their
+    intervals, the `top` kernel names by summed ms), by the profiler's raw
+    device events (copies and memsets left out; read without building the
+    profiler's event tree, which takes seconds for thousands of launches);
+    a trace with no device event is taken again, at most three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and "memcpy" not in e.name().lower() and "memset" not in e.name().lower()]
+        if events:
+            spans = sorted((e.start_ns(), e.end_ns()) for e in events)
+            busy, end = 0, spans[0][0]
+            for s, e in spans:
+                busy += max(0, e - max(s, end))
+                end = max(end, e)
+            by_name = {}
+            for e in events:
+                by_name[e.name()[:60]] = by_name.get(e.name()[:60], 0) + e.duration_ns() / 1e6
+            return len(events), busy / 1e6, dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    raise AssertionError("the profiler saw no kernel on the card")
+
+
+def phase_pdm_score_path(dev, card: str) -> dict:
+    """NAVSIM scoring through the port's runner: `PDM_BATCHES` batches of
+    `PDM_SCENES` raw-sensor scenes, the bf16 agent at full width and depth
+    (seeded weights, default kernels), then simulation and scoring on the
+    card; metric caches saved by `MetricCache.save` and read back by
+    `MetricCacheLoader`. Returns the agent kernels' launch counts of the
+    counted run (counts set to 0 just before it)."""
+    import csv
+    import logging
+
+    from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
+    from diffusiondrive_torch.common.dataclasses import Trajectory, TrajectorySampling
+    from diffusiondrive_torch.common.dataloader import MetricCacheLoader
+    from diffusiondrive_torch.entry import example_agent_input
+    from diffusiondrive_torch.evaluate.pdm_score import scenes_to_device, score_scenes, simulate_and_score, stack_scenes
+    from diffusiondrive_torch.evaluate.runner import SUB_SCORE_COLUMNS, run_pdm_score_evaluation, write_score_csv
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig, ScorerOutput, score_proposals
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.attention_fused import fused_attention
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.ops.stem_fused import fused_stem
+
+    class RecordingAgent(DiffusionDriveAgent):
+        """Keeps each batched forward's trajectories (for the card-vs-CPU check)."""
+
+        def forward(self, features):
+            out = super().forward(features)
+            self.trajectories.append(out["trajectory"])
+            return out
+
+    class Loader:
+        """Tokens and seeded raw-sensor agent inputs, in memory."""
+
+        def __init__(self, inputs, tokens):
+            self.inputs, self.tokens = inputs, list(tokens)
+
+        def get_agent_input_from_token(self, token):
+            return self.inputs[token]
+
+    class Errors(logging.Handler):
+        """Every ERROR the runner logs: a quarantined token or the per-token fallback."""
+
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record.getMessage())
+
+    cfg = TransfuserConfig()
+    n = PDM_SCENES * PDM_BATCHES
+    tokens = [f"scene_{i:03d}" for i in range(n)]
+    simulator = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    errors = Errors()
+    logging.getLogger("diffusiondrive_torch.evaluate.runner").addHandler(errors)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pdm_") as tmp:
+        t0 = time.perf_counter()
+        for i, tok in enumerate(tokens):
+            pdm_road_cache(tok, seed=i).save(Path(tmp) / "cache" / "chip_smoke_road" / tok / "metric_cache.npz")
+        cache_loader = MetricCacheLoader(Path(tmp) / "cache")
+        if sorted(cache_loader.tokens) != tokens:
+            raise AssertionError(f"MetricCacheLoader found {len(cache_loader.tokens)} caches, want {n}")
+        inputs = {tok: example_agent_input(cfg, seed=i) for i, tok in enumerate(tokens)}
+        setup_s = time.perf_counter() - t0
+
+        agent = RecordingAgent(cfg, dtype=torch.bfloat16, seed=0, preprocess_on_device=True, device=dev)
+        agent.trajectories = []
+        # warm-up: one batch
+        run_pdm_score_evaluation(agent, Loader(inputs, tokens[:PDM_SCENES]), cache_loader, simulator,
+                                 batch_size=PDM_SCENES, device=dev)
+        agent.trajectories = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_stem.launches = fused_conv3x3.launches = histogram2d.launches = fused_attention.launches = 0
+        t0 = time.perf_counter()
+        rows = run_pdm_score_evaluation(agent, Loader(inputs, tokens), cache_loader, simulator,
+                                        batch_size=PDM_SCENES, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"splat": histogram2d.launches, "stem": fused_stem.launches,
+                  "conv3x3": fused_conv3x3.launches, "attention_fwd": fused_attention.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        logging.getLogger("diffusiondrive_torch.evaluate.runner").removeHandler(errors)
+        if errors.records:
+            raise AssertionError(f"pdm_score_path: the runner logged errors (quarantine or fallback): "
+                                 f"{errors.records[:3]}")
+        want = {"splat": PDM_BATCHES, "stem": 2 * PDM_BATCHES, "conv3x3": 12 * PDM_BATCHES, "attention_fwd": 0}
+        if counts != want:
+            raise AssertionError(f"pdm_score_path: launches {counts} over {PDM_BATCHES} batches, want {want}")
+        if [r["token"] for r in rows] != tokens or not all(r["valid"] for r in rows):
+            raise AssertionError(f"pdm_score_path: {sum(r['valid'] for r in rows)} valid rows of {len(rows)}")
+        scores = np.array([[r[c] for c in SUB_SCORE_COLUMNS] for r in rows])
+        if not np.isfinite(scores).all() or scores.min() < 0.0 or scores.max() > 1.0:
+            raise AssertionError("pdm_score_path: sub-scores outside [0, 1]")
+        with open(write_score_csv(rows, Path(tmp) / "csv"), newline="") as fp:
+            table = list(csv.reader(fp))
+        if (table[0] != ["", "token", "valid", *SUB_SCORE_COLUMNS] or [r[1] for r in table[1:]] != tokens + ["average"]
+                or abs(float(table[-1][-1]) - scores[:, -1].mean()) > 1e-6):
+            raise AssertionError(f"pdm_score_path: CSV header {table[0]}, {len(table)} lines")
+        log("pdm_score_path runner bf16", card=card, scenes=n, batches=PDM_BATCHES, batch_size=PDM_SCENES,
+            scenes_per_s=n / wall_s, wall_s=wall_s, peak_mem_gb=peak_gb, setup_s=setup_s,
+            valid_rows=len(rows), fallback_taken=False, mean_score=float(scores[:, -1].mean()),
+            mean_sub_scores=dict(zip(SUB_SCORE_COLUMNS, scores.mean(0).tolist())), launches=counts,
+            inputs="seeded raw sensors in memory (no disk IO), caches read from .npz")
+
+        # the first batch's caches and the agent's trajectories on the card
+        # (float32), its first PDM_CPU_SCENES scenes again on the CPU
+        caches = [cache_loader.get_from_token(tok) for tok in tokens[:PDM_SCENES]]
+        trajs = [Trajectory(p) for p in agent.trajectories[0]]
+        t0 = time.perf_counter()
+        on_card = score_scenes(caches, trajs, simulator, device=dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = score_scenes(caches[:PDM_CPU_SCENES], trajs[:PDM_CPU_SCENES], simulator, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        errs = pdm_outputs_match("pdm_score_path card-vs-cpu",
+                                 ScorerOutput(*[v[:PDM_CPU_SCENES] for v in on_card]), on_cpu)
+        golden = check_golden(ScorerOutput(*[v.cpu().numpy() for v in score_proposals(
+            *[torch.from_numpy(a).to(dev) for a in golden_scenarios()], simulator.proposal_sampling)]))
+        log("pdm_score_path f32 card-vs-cpu", card=card, scenes_on_card=PDM_SCENES, scenes_on_cpu=PDM_CPU_SCENES,
+            max_abs_err=errs, tol_rel=PDM_TOL,
+            discrete_equal=True, golden=golden, card_call_s=card_s, cpu_call_s=cpu_s,
+            pred_score_mean=float(on_card.score[:, 1].mean()), pdm_score_mean=float(on_card.score[:, 0].mean()))
+
+    # one batch of 32 scenes, split as the runner runs it: the features (the
+    # IO threads' work), their stacking, the agent's forward with the copies,
+    # the scenes' stacking and copy, then simulate and score on the device
+    # (`time_rows`), launches and syncs
+    builder = agent.get_feature_builders()[0]
+    t0 = time.perf_counter()
+    feats = [builder.compute_features(inputs[tok]) for tok in tokens[:PDM_SCENES]]
+    features_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    stacked = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+    stack_features_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.forward(stacked)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    del feats, stacked, inputs
+    t0 = time.perf_counter()
+    host = stack_scenes(caches, trajs, simulator.proposal_sampling)
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proposals, ctx = scenes_to_device(*host, dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    initial, rest = ctx[0], ctx[1:]
+    with torch.no_grad():
+        simulated = simulator.simulate_proposals(proposals, initial[:, None])
+        simulate = lambda: simulator.simulate_proposals(proposals, initial[:, None])  # noqa: E731
+        score = lambda: score_proposals(simulated, *rest, simulator.proposal_sampling, PDMScorerConfig())  # noqa: E731
+        times = time_rows({"simulate": simulate, "score": score}, iters=3, warmup=1)
+        host_ms = {}
+        for name, fn in (("simulate", simulate), ("score", score)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms[name] = (time.perf_counter() - t0) * 1e3
+        (sim_launches, sim_busy, sim_top), (score_launches, score_busy, score_top) = (
+            _device_kernels(simulate), _device_kernels(score))
+        syncs = _syncs_in(lambda: simulate_and_score(simulator, PDMScorerConfig(), proposals, *ctx))
+        if syncs:
+            raise AssertionError(f"simulate and score synchronise with the host: {syncs[:4]}")
+        torch.cuda.reset_peak_memory_stats()
+        score()
+        torch.cuda.synchronize()
+        score_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch_syncs = _syncs_in(lambda: score_scenes(caches, trajs, simulator, device=dev))
+    log("pdm_score_path batch", card=card, scenes=PDM_SCENES, proposals=2 * PDM_SCENES,
+        simulate_device_ms=times["simulate"], score_device_ms=times["score"],
+        simulate_runs=times["simulate_runs"], score_runs=times["score_runs"], host_behind=times["host_behind"],
+        simulate_busy_ms=sim_busy, score_busy_ms=score_busy, simulate_top_kernels_ms=sim_top,
+        score_top_kernels_ms=score_top,
+        simulate_host_ms=host_ms["simulate"], score_host_ms=host_ms["score"], stack_host_ms=stack_ms,
+        h2d_ms=h2d_ms, features_host_ms=features_ms, stack_features_host_ms=stack_features_ms,
+        agent_forward_host_ms=forward_ms, runner_ms_per_batch=wall_s / PDM_BATCHES * 1e3,
+        launches_per_batch={"simulate": sim_launches, "score": score_launches},
+        host_syncs_simulate_and_score=0,
+        host_syncs_per_batch=len(batch_syncs), sync_sources=sorted(set(batch_syncs))[:6],
+        score_peak_mem_gb=score_peak_gb)
+    log("pdm_score_path launches", batches=PDM_BATCHES, **counts)
+    return counts
+
+
 LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
 
 
@@ -1219,13 +1643,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    phase_device()
+    card = phase_device().splitlines()[0]
     build_logs = phase_build()
     summary = phase_kernels(dev)
     summary.update(phase_attention(dev))
     summary.update(phase_conv3x3_train(dev))
     summary.update(phase_lap(dev, build_logs))
-    counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev), **phase_train_path(dev)}
+    counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev),
+              "pdm_score_path": phase_pdm_score_path(dev, card), **phase_train_path(dev)}
 
     bf = torch.bfloat16
     kernels = []

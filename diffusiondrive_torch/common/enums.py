@@ -1,5 +1,6 @@
 """Index layouts: copies of `diffusiondrive_tpu/common/enums.py` (`BoundingBoxIndex`,
-`BoundingBox2DIndex`, `LidarIndex`, `StateIndex`, `BBCoordsIndex`) and of
+`BoundingBox2DIndex`, `LidarIndex`, `StateIndex`, `BBCoordsIndex` and the
+scorer's `EgoAreaIndex`, `MultiMetricIndex`, `WeightedMetricIndex`) and of
 `diffusiondrive_tpu/evaluate/observation.py:MapLayer`, with the same values."""
 
 
@@ -112,3 +113,42 @@ class MapLayer:
 
     DRIVABLE = (ROADBLOCK, INTERSECTION, DRIVABLE_AREA, CARPARK_AREA)
     DRIVABLE_LANES = (LANE, LANE_CONNECTOR)
+
+
+class EgoAreaIndex:
+    """Ego-area classification channels used by the PDM scorer
+    (`pdm_planner/utils/pdm_enums.py:EgoAreaIndex`)."""
+
+    MULTIPLE_LANES = 0
+    NON_DRIVABLE_AREA = 1
+    ONCOMING_TRAFFIC = 2
+
+    @classmethod
+    def size(cls) -> int:
+        return 3
+
+
+class MultiMetricIndex:
+    """Multiplicative sub-metrics of the PDM score; driving direction is not
+    one of them: it lives in `WeightedMetricIndex` (with weight 0)."""
+
+    NO_COLLISION = 0
+    DRIVABLE_AREA = 1
+
+    @classmethod
+    def size(cls) -> int:
+        return 2
+
+
+class WeightedMetricIndex:
+    """Weighted-average sub-metrics of the PDM score. The scorer builds its
+    weight vector in this order (`evaluate/scorer.py:score_proposals`)."""
+
+    PROGRESS = 0
+    TTC = 1
+    COMFORTABLE = 2
+    DRIVING_DIRECTION = 3
+
+    @classmethod
+    def size(cls) -> int:
+        return 4

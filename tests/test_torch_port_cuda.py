@@ -488,3 +488,88 @@ def test_cuda_conv3x3_train_matches_plain_version(cuda_device, dtype, tol, B, H,
         if dtype == torch.bfloat16:
             _within_2_bf16_ulps(res["kernel"][i], res["plain"][i], name)
     _close(res["kernel"][2], res["plain"][2], tol, "dw")
+
+
+# --------------------------------------------------------------------------- #
+# PDM simulation and scoring on the card against the CPU (plain torch, no
+# hand-written kernel): the scenes of `chip_smoke.py`'s pdm_score_path phase
+# --------------------------------------------------------------------------- #
+
+
+def _pdm_batch(num_scenes, seed=0):
+    from chip_smoke import pdm_road_cache
+    from diffusiondrive_torch.common.dataclasses import Trajectory
+
+    rng = np.random.default_rng(seed)
+    caches = [pdm_road_cache(f"s{i}", seed=seed * 100 + i) for i in range(num_scenes)]
+    trajs = []
+    for _ in range(num_scenes):
+        poses = np.zeros((8, 3), np.float32)
+        steps = np.arange(1, 9)
+        poses[:, 0] = rng.uniform(0.0, 14.0) * 0.5 * steps
+        poses[:, 1] = rng.normal(0.0, 0.3) * steps
+        poses[:, 2] = rng.normal(0.0, 0.05) * steps
+        trajs.append(Trajectory(poses))
+    return caches, trajs
+
+
+@pytest.mark.cuda
+def test_cuda_simulator_matches_cpu(cuda_device):
+    """The 40-step rollout of (scenes, 2) proposals: float32 states within
+    1e-3 of the CPU's, float64 within 1e-9."""
+    from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+    from diffusiondrive_torch.evaluate.pdm_score import stack_scenes
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+
+    caches, trajs = _pdm_batch(6)
+    sim = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    proposals, ctx = stack_scenes(caches, trajs, sim.proposal_sampling)
+    for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+        p, init = torch.from_numpy(proposals).to(dtype), torch.from_numpy(ctx[0]).to(dtype)[:, None]
+        want = sim.simulate_proposals(p, init)
+        got = sim.simulate_proposals(p.to(cuda_device), init.to(cuda_device)).cpu()
+        assert got.shape == want.shape == (6, 2, 41, 11)
+        assert (got - want).abs().max().item() <= tol, dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("object_chunk", [16, None], ids=["chunked", "one_pass"])
+def test_cuda_scorer_matches_cpu(cuda_device, object_chunk):
+    """Every sub-score of both proposals on the card equals the CPU's, the
+    floats within 1e-4 (`chip_smoke.pdm_outputs_match`); 96 objects in 6
+    chunks or one pass; the golden scenarios hold on the card."""
+    from chip_smoke import check_golden, golden_scenarios, pdm_outputs_match
+    from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+    from diffusiondrive_torch.evaluate.pdm_score import score_scenes
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig, ScorerOutput, score_proposals
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+
+    caches, trajs = _pdm_batch(4, seed=1)
+    sim = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    config = PDMScorerConfig(object_chunk=object_chunk)
+    got = score_scenes(caches, trajs, sim, config, device=cuda_device)
+    want = score_scenes(caches, trajs, sim, config, device="cpu")
+    pdm_outputs_match("card vs cpu", got, want)
+    out = score_proposals(*[torch.from_numpy(a).to(cuda_device) for a in golden_scenarios()],
+                          sim.proposal_sampling, config)
+    check_golden(ScorerOutput(*[v.cpu().numpy() for v in out]))
+
+
+@pytest.mark.cuda
+def test_cuda_simulate_and_score_make_no_host_sync(cuda_device):
+    from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+    from diffusiondrive_torch.evaluate.pdm_score import scenes_to_device, simulate_and_score, stack_scenes
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+
+    caches, trajs = _pdm_batch(2, seed=2)
+    sim = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    proposals, ctx = scenes_to_device(*stack_scenes(caches, trajs, sim.proposal_sampling), cuda_device)
+    simulate_and_score(sim, PDMScorerConfig(), proposals, *ctx)   # the constant tables reach the card once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = simulate_and_score(sim, PDMScorerConfig(), proposals, *ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.score.shape == (2, 2) and out.score.is_cuda
