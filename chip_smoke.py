@@ -88,6 +88,30 @@ line per phase, then one JSON line per kernel summary, then the result:
                the simulate and score device ms of a 32-scene batch
                (`time_rows`, and the profiler's busy ms), their launches,
                host syncs per batch and peak memory, each beside the card.
+5c. ``metric_caching_path`` NAVSIM metric caching through the port's
+               `planning/metric_caching.py:cache_data` on the card (default
+               device): PDM-Closed at its full defaults (15 proposals = 3
+               lateral paths x 5 IDM policies, 40 steps at 0.1 s, 96 track
+               slots, 256 drivable polygons of 48 vertices, map radius 100
+               m) on 64 scenes of four synthetic logs (`utils/synthetic.py`:
+               two with a parked vehicle ahead, two free road) over the
+               1440-object city grid of `tests/test_map_scale.py`
+               (`city_map`), loaded by `SceneLoader` with its default
+               arguments from a `.ddmap.pkl` under `NUPLAN_MAPS_ROOT`.
+               Prints one planner call split out (the host's numpy part;
+               the launches, busy ms and `time_rows` ms of its simulate
+               and score; its host syncs, which must be exactly 1), the
+               scenes/s of `cache_data` at 1 worker over the 64 scenes and
+               at 8 over 32 of them (no token may fail, and both caches of
+               a scene must hold the same poses), the card against the CPU
+               on one scene of each log (proposals equal, scores within
+               1e-4 x max(1, |CPU|), the same choice unless the CPU's top
+               two are within 1e-4, `pdm_poses` equal), then the caches
+               read back by `MetricCacheLoader` and scored with the bf16
+               agent through `run_pdm_score_evaluation` (every row valid;
+               1 splat, 2 stem and 12 conv3x3 launches per batch of 32,
+               counted from 0 just before the run), with PDM-Closed's own
+               mean score beside the agent's.
 6. ``kernel lap b8`` / ``b64`` the batched Hungarian kernel at n=30 (float32
                costs from a seed, half of each batch integer costs in [0, 4)
                for ties): its assignment equals the plain version's on the
@@ -1064,29 +1088,12 @@ def _device_kernels(fn, top: int = 4):
     raise AssertionError("the profiler saw no kernel on the card")
 
 
-def phase_pdm_score_path(dev, card: str) -> dict:
-    """NAVSIM scoring through the port's runner: `PDM_BATCHES` batches of
-    `PDM_SCENES` raw-sensor scenes, the bf16 agent at full width and depth
-    (seeded weights, default kernels), then simulation and scoring on the
-    card; metric caches saved by `MetricCache.save` and read back by
-    `MetricCacheLoader`. Returns the agent kernels' launch counts of the
-    counted run (counts set to 0 just before it)."""
-    import csv
+def _runner_helpers():
+    """(RecordingAgent, Loader, Errors) for driving `run_pdm_score_evaluation`
+    with the raw-sensor agent on seeded inputs held in memory."""
     import logging
 
     from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
-    from diffusiondrive_torch.common.dataclasses import Trajectory, TrajectorySampling
-    from diffusiondrive_torch.common.dataloader import MetricCacheLoader
-    from diffusiondrive_torch.entry import example_agent_input
-    from diffusiondrive_torch.evaluate.pdm_score import scenes_to_device, score_scenes, simulate_and_score, stack_scenes
-    from diffusiondrive_torch.evaluate.runner import SUB_SCORE_COLUMNS, run_pdm_score_evaluation, write_score_csv
-    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig, ScorerOutput, score_proposals
-    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
-    from diffusiondrive_torch.models.config import TransfuserConfig
-    from diffusiondrive_torch.ops.attention_fused import fused_attention
-    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
-    from diffusiondrive_torch.ops.lidar_splat import histogram2d
-    from diffusiondrive_torch.ops.stem_fused import fused_stem
 
     class RecordingAgent(DiffusionDriveAgent):
         """Keeps each batched forward's trajectories (for the card-vs-CPU check)."""
@@ -1106,7 +1113,8 @@ def phase_pdm_score_path(dev, card: str) -> dict:
             return self.inputs[token]
 
     class Errors(logging.Handler):
-        """Every ERROR the runner logs: a quarantined token or the per-token fallback."""
+        """Every ERROR a logger reports: a quarantined token or the per-token
+        fallback of the runner, a token `cache_data` failed."""
 
         def __init__(self):
             super().__init__(logging.ERROR)
@@ -1114,6 +1122,34 @@ def phase_pdm_score_path(dev, card: str) -> dict:
 
         def emit(self, record):
             self.records.append(record.getMessage())
+
+    return RecordingAgent, Loader, Errors
+
+
+def phase_pdm_score_path(dev, card: str) -> dict:
+    """NAVSIM scoring through the port's runner: `PDM_BATCHES` batches of
+    `PDM_SCENES` raw-sensor scenes, the bf16 agent at full width and depth
+    (seeded weights, default kernels), then simulation and scoring on the
+    card; metric caches saved by `MetricCache.save` and read back by
+    `MetricCacheLoader`. Returns the agent kernels' launch counts of the
+    counted run (counts set to 0 just before it)."""
+    import csv
+    import logging
+
+    from diffusiondrive_torch.common.dataclasses import Trajectory, TrajectorySampling
+    from diffusiondrive_torch.common.dataloader import MetricCacheLoader
+    from diffusiondrive_torch.entry import example_agent_input
+    from diffusiondrive_torch.evaluate.pdm_score import scenes_to_device, score_scenes, simulate_and_score, stack_scenes
+    from diffusiondrive_torch.evaluate.runner import SUB_SCORE_COLUMNS, run_pdm_score_evaluation, write_score_csv
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig, ScorerOutput, score_proposals
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.attention_fused import fused_attention
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.ops.stem_fused import fused_stem
+
+    RecordingAgent, Loader, Errors = _runner_helpers()
 
     cfg = TransfuserConfig()
     n = PDM_SCENES * PDM_BATCHES
@@ -1251,6 +1287,248 @@ def phase_pdm_score_path(dev, card: str) -> dict:
         host_syncs_per_batch=len(batch_syncs), sync_sources=sorted(set(batch_syncs))[:6],
         score_peak_mem_gb=score_peak_gb)
     log("pdm_score_path launches", batches=PDM_BATCHES, **counts)
+    return counts
+
+
+MC_GRID = (24, 12)     # city blocks (x, y) of `tests/test_map_scale.py`'s grid: 5 objects each, 1440 in all
+MC_ROUTE = tuple(f"rb_0_{i}" for i in range(12))   # the logs' route: row 0 of the grid, x in [0, 600]
+# (log name, ego speed m/s, parked vehicle's global x or None): IDM braking and the
+# leading-agent search behind a parked vehicle, and free-road scenes
+MC_LOGS = (("parked_40", 4.0, 40.0), ("parked_90", 4.0, 90.0), ("free", 4.0, None), ("free_fast", 8.0, None))
+MC_SCENES_PER_LOG = 16   # 4 logs x 16 = 64 scenes, each a 14-frame window one frame apart
+# `cache_data`'s thread pool: one thread over every scene, then its default of 8
+# over half of each log's scenes (8 threads take ~4x longer a scene on one card)
+MC_WORKERS = ((1, MC_SCENES_PER_LOG), (8, MC_SCENES_PER_LOG // 2))
+MC_SPLIT_TOKEN = "parked_90_token_00003"   # the scene whose planner call is split out (its log's first)
+
+
+def city_map(blocks_x: int = MC_GRID[0], blocks_y: int = MC_GRID[1], block_len: float = 50.0, width: float = 8.0):
+    """The grid city of `tests/test_map_scale.py:make_city_map` as the port's
+    `LocalMapAPI`: blocks_x * blocks_y roadblocks with one lane each (chained
+    west to east along each row, 15 m/s), plus an intersection, a crosswalk
+    and a walkway per block."""
+    from diffusiondrive_torch.evaluate.observation import MapLayer
+    from diffusiondrive_torch.planning.map_api import LocalMapAPI, MapObjectData
+
+    objects = []
+    for j in range(blocks_y):
+        y0 = j * 30.0
+        for i in range(blocks_x):
+            x0, x1 = i * block_len, (i + 1) * block_len
+            rect = np.array([[x0, y0 - width / 2], [x1, y0 - width / 2], [x1, y0 + width / 2], [x0, y0 + width / 2]])
+            rb, lane = f"rb_{j}_{i}", f"lane_{j}_{i}"
+            objects.append(MapObjectData(
+                token=rb, layer=MapLayer.ROADBLOCK, polygon=rect,
+                outgoing=[f"rb_{j}_{i+1}"] if i + 1 < blocks_x else [],
+                incoming=[f"rb_{j}_{i-1}"] if i > 0 else []))
+            bx = np.arange(x0, x1 + 1.0, 2.0)
+            objects.append(MapObjectData(
+                token=lane, layer=MapLayer.LANE, polygon=rect,
+                baseline=np.stack([bx, np.full_like(bx, y0), np.zeros_like(bx)], -1),
+                outgoing=[f"lane_{j}_{i+1}"] if i + 1 < blocks_x else [],
+                incoming=[f"lane_{j}_{i-1}"] if i > 0 else [], parent_token=rb, speed_limit=15.0))
+            objects.append(MapObjectData(token=f"int_{j}_{i}", layer=MapLayer.INTERSECTION,
+                                         polygon=rect + np.array([block_len / 2, 15.0])))
+            objects.append(MapObjectData(token=f"cw_{j}_{i}", layer=MapLayer.CROSSWALK,
+                                         polygon=rect * 0.2 + np.array([x0, y0 + 12.0])))
+            objects.append(MapObjectData(token=f"ww_{j}_{i}", layer=MapLayer.WALKWAYS,
+                                         polygon=rect + np.array([0.0, -14.0])))
+    return LocalMapAPI(objects, "city")
+
+
+def check_planner_choice(name: str, scores: np.ndarray, want: np.ndarray) -> int:
+    """The proposal choice against the CPU's scores of the same proposals:
+    the scores within PDM_TOL x max(1, |CPU|); the card's first maximum is
+    the CPU's wherever the CPU's top-two gap exceeds PDM_TOL, and otherwise
+    scores within PDM_TOL of the CPU's maximum. Returns the card's choice."""
+    err = np.abs(scores.astype(np.float64) - want)
+    if not (err <= PDM_TOL * np.maximum(1.0, np.abs(want))).all():
+        raise AssertionError(f"{name}: scores {scores} vs the CPU's {want}")
+    chosen, best = int(np.argmax(scores)), int(np.argmax(want))
+    top2 = np.sort(want)[-2:]
+    if (chosen != best if top2[1] - top2[0] > PDM_TOL else want[chosen] < want[best] - PDM_TOL):
+        raise AssertionError(f"{name}: chose proposal {chosen}, the CPU {best} (scores {want})")
+    return chosen
+
+
+def phase_metric_caching_path(dev, card: str) -> dict:
+    """NAVSIM metric caching through the port's `cache_data` on the card:
+    PDM-Closed at its full defaults (15 proposals, 40 steps at 0.1 s, 96
+    track slots, 256 drivable polygons of 48 vertices, map radius 100 m) on
+    64 synthetic scenes (`utils/synthetic.py:build_synthetic_log`; parked
+    vehicles ahead and free road) of the 1440-object city grid, loaded by
+    `SceneLoader` with its default arguments from a `.ddmap.pkl` under
+    `NUPLAN_MAPS_ROOT`. Then the caches are read back and scored with the
+    bf16 agent through `run_pdm_score_evaluation`. Returns the agent
+    kernels' launch counts of that run (counts set to 0 just before it)."""
+    import logging
+
+    import diffusiondrive_torch.common.dataclasses as scene_types
+    from diffusiondrive_torch.common.dataclasses import SceneFilter, Trajectory, TrajectorySampling
+    from diffusiondrive_torch.common.dataloader import MetricCacheLoader, SceneLoader
+    from diffusiondrive_torch.entry import example_agent_input
+    from diffusiondrive_torch.evaluate.pdm_score import score_scenes, simulate_and_score
+    from diffusiondrive_torch.evaluate.runner import SUB_SCORE_COLUMNS, run_pdm_score_evaluation
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.ops.attention_fused import fused_attention
+    from diffusiondrive_torch.ops.conv_fused import fused_conv3x3
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.ops.stem_fused import fused_stem
+    from diffusiondrive_torch.planning.metric_caching import cache_data
+    from diffusiondrive_torch.planning.pdm_closed.observation_builder import ego_state_array_from_scene
+    from diffusiondrive_torch.planning.pdm_closed.planner import PDMClosedPlanner
+    from diffusiondrive_torch.utils.synthetic import build_synthetic_log
+
+    RecordingAgent, Loader, Errors = _runner_helpers()
+    simulator = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    maps_root = scene_types.NUPLAN_MAPS_ROOT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        city = city_map()
+        city.save(tmp / "maps" / "synthetic.ddmap.pkl")   # the logs' map_location
+        for name, speed, obstacle in MC_LOGS:
+            logs_dir, blobs_dir = build_synthetic_log(tmp / "data", num_frames=MC_SCENES_PER_LOG + 13, log_name=name,
+                                                      speed=speed, obstacle_x=obstacle, roadblock_ids=MC_ROUTE)
+        scene_types.NUPLAN_MAPS_ROOT = str(tmp / "maps")   # as the environment variable would set it
+        try:
+            loader = SceneLoader(logs_dir, blobs_dir, SceneFilter(frame_interval=1))
+            tokens = sorted(loader.tokens)
+            if len(tokens) != len(MC_LOGS) * MC_SCENES_PER_LOG:
+                raise AssertionError(f"metric_caching_path: {len(tokens)} scenes")
+            scene = loader.get_scene_from_token(MC_SPLIT_TOKEN)
+            if scene.map_api is None or len(scene.map_api._objects) != len(city._objects):
+                raise AssertionError("metric_caching_path: SceneLoader did not load the map")
+            setup_s = time.perf_counter() - t0
+            log("metric_caching_path setup", scenes=len(tokens), logs=[m[0] for m in MC_LOGS],
+                map_objects=len(city._objects), setup_s=setup_s)
+
+            # one planner call split out: the host's numpy part, then simulate
+            # and score of its 15 proposals on the card
+            planner = PDMClosedPlanner(device=dev)
+            planner.compute_planner_trajectory(scene)   # the scorer's constant tables reach the card once
+            split = {}
+            score_on_card = planner._score_proposals
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = score_on_card(*args)
+                split["score_host_ms"] = (time.perf_counter() - t) * 1e3
+                return out
+
+            planner._score_proposals = timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planner.compute_planner_trajectory(scene)
+            split["planner_ms"] = (time.perf_counter() - t0) * 1e3
+            del planner._score_proposals
+            syncs = _syncs_in(lambda: planner.compute_planner_trajectory(scene))
+            if len(syncs) != 1:
+                raise AssertionError(f"metric_caching_path: {len(syncs)} host syncs in a planner call, want 1: {syncs[:4]}")
+            inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in planner.scorer_inputs(planner.proposals, ego_state_array_from_scene(scene))]
+            with torch.no_grad():
+                run = lambda: simulate_and_score(simulator, PDMScorerConfig(), *inputs)  # noqa: E731
+                times = time_rows({"simulate_and_score": run}, iters=3, warmup=1)
+                launches, busy, top = _device_kernels(run)
+            log("metric_caching_path scene", card=card, token=MC_SPLIT_TOKEN, proposals=len(planner.proposals),
+                planner_ms=split["planner_ms"], host_numpy_ms=split["planner_ms"] - split["score_host_ms"],
+                simulate_and_score_host_ms=split["score_host_ms"],
+                simulate_and_score_device_ms=times["simulate_and_score"],
+                simulate_and_score_runs=times["simulate_and_score_runs"], host_behind=times["host_behind"],
+                simulate_and_score_busy_ms=busy, launches=launches, top_kernels_ms=top,
+                host_syncs=len(syncs), sync_sources=syncs)
+
+            # `cache_data` over every scene with one thread, then over half of
+            # them with eight, each into its own directory; no token may fail
+            errors = Errors()
+            logging.getLogger("diffusiondrive_torch.planning.metric_caching").addHandler(errors)
+            caches = {}
+            for workers, per_log in MC_WORKERS:
+                subset = sorted(t for name, *_ in MC_LOGS
+                                for t in [u for u in tokens if u.startswith(f"{name}_token_")][:per_log])
+                scenes = SceneLoader(logs_dir, blobs_dir, SceneFilter(frame_interval=1, tokens=subset))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                paths = cache_data(scenes, str(tmp / f"cache_w{workers}"), num_workers=workers)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                if errors.records or len(paths) != len(subset):
+                    raise AssertionError(f"metric_caching_path: {len(subset) - len(paths)} failed tokens "
+                                         f"at {workers} workers: {errors.records[:3]}")
+                caches[workers] = MetricCacheLoader(tmp / f"cache_w{workers}")
+                log(f"metric_caching_path cache_data w{workers}", card=card, scenes=len(subset), num_workers=workers,
+                    scenes_per_s=len(subset) / wall_s, wall_s=wall_s, failed_tokens=0,
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            logging.getLogger("diffusiondrive_torch.planning.metric_caching").removeHandler(errors)
+            if sorted(caches[1].tokens) != tokens:
+                raise AssertionError(f"metric_caching_path: MetricCacheLoader found {len(caches[1].tokens)} caches")
+            for tok in caches[8].tokens:
+                if not np.array_equal(caches[1].get_from_token(tok).pdm_poses, caches[8].get_from_token(tok).pdm_poses):
+                    raise AssertionError(f"metric_caching_path: {tok}: 1 and 8 workers cached other poses")
+
+            # card vs CPU: the planner again on one scene of each log
+            errs, chosen = [], {}
+            for name, *_ in MC_LOGS:
+                of_log = [t for t in tokens if t.startswith(f"{name}_token_")]
+                tok = of_log[len(of_log) // 2]
+                scene = loader.get_scene_from_token(tok)
+                card_planner, cpu_planner = PDMClosedPlanner(device=dev), PDMClosedPlanner(device="cpu")
+                poses, _ = card_planner.compute_planner_trajectory(scene)
+                cpu_poses, _ = cpu_planner.compute_planner_trajectory(scene)
+                if not np.array_equal(card_planner.proposals, cpu_planner.proposals):
+                    raise AssertionError(f"metric_caching_path: {tok}: the card's proposals are not the CPU's")
+                chosen[tok] = check_planner_choice(tok, card_planner.scores, cpu_planner.scores.astype(np.float64))
+                errs.append(float(np.abs(card_planner.scores - cpu_planner.scores).max()))
+                if not (np.array_equal(poses, cpu_poses) and np.array_equal(caches[1].get_from_token(tok).pdm_poses, poses)):
+                    raise AssertionError(f"metric_caching_path: {tok}: pdm_poses differ from the CPU's")
+            log("metric_caching_path card-vs-cpu", card=card, scenes=len(chosen), proposals_equal=True,
+                max_abs_err=max(errs), tol_rel=PDM_TOL, chosen=chosen, pdm_poses_equal=True)
+        finally:
+            scene_types.NUPLAN_MAPS_ROOT = maps_root
+
+        # every cache read back and scored with the bf16 agent
+        cache_loader = caches[1]
+        cfg = TransfuserConfig()
+        inputs = {tok: example_agent_input(cfg, seed=i) for i, tok in enumerate(tokens)}
+        agent = RecordingAgent(cfg, dtype=torch.bfloat16, seed=0, preprocess_on_device=True, device=dev)
+        agent.trajectories = []
+        errors = Errors()
+        logging.getLogger("diffusiondrive_torch.evaluate.runner").addHandler(errors)
+        torch.cuda.synchronize()
+        fused_stem.launches = fused_conv3x3.launches = histogram2d.launches = fused_attention.launches = 0
+        t0 = time.perf_counter()
+        rows = run_pdm_score_evaluation(agent, Loader(inputs, tokens), cache_loader, simulator,
+                                        batch_size=PDM_SCENES, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"splat": histogram2d.launches, "stem": fused_stem.launches,
+                  "conv3x3": fused_conv3x3.launches, "attention_fwd": fused_attention.launches}
+        logging.getLogger("diffusiondrive_torch.evaluate.runner").removeHandler(errors)
+        batches = -(-len(tokens) // PDM_SCENES)
+        if errors.records:
+            raise AssertionError(f"metric_caching_path: the runner logged errors: {errors.records[:3]}")
+        if counts != {"splat": batches, "stem": 2 * batches, "conv3x3": 12 * batches, "attention_fwd": 0}:
+            raise AssertionError(f"metric_caching_path: launches {counts} over {batches} batches")
+        if [r["token"] for r in rows] != tokens or not all(r["valid"] for r in rows):
+            raise AssertionError(f"metric_caching_path: {sum(r['valid'] for r in rows)} valid rows of {len(rows)}")
+        scores = np.array([[r[c] for c in SUB_SCORE_COLUMNS] for r in rows])
+        if not np.isfinite(scores).all() or scores.min() < 0.0 or scores.max() > 1.0:
+            raise AssertionError("metric_caching_path: sub-scores outside [0, 1]")
+        trajs = [Trajectory(p) for batch in agent.trajectories for p in batch][: len(tokens)]
+        both = score_scenes([cache_loader.get_from_token(t) for t in tokens], trajs, simulator, device=dev)
+        if not np.allclose(both.score[:, 1], scores[:, -1], rtol=0, atol=PDM_TOL):
+            raise AssertionError("metric_caching_path: the runner's rows are not the agent's scores")
+        log("metric_caching_path scoring bf16", card=card, scenes=len(rows), batches=batches, valid_rows=len(rows),
+            runner_s=wall_s, agent_mean_score=float(scores[:, -1].mean()),
+            pdm_closed_mean_score=float(both.score[:, 0].mean()),
+            mean_sub_scores=dict(zip(SUB_SCORE_COLUMNS, scores.mean(0).tolist())), launches=counts,
+            inputs="seeded raw sensors in memory, caches written by cache_data")
+    log("metric_caching_path launches", batches=batches, **counts)
     return counts
 
 
@@ -1650,7 +1928,8 @@ def main() -> int:
     summary.update(phase_conv3x3_train(dev))
     summary.update(phase_lap(dev, build_logs))
     counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev),
-              "pdm_score_path": phase_pdm_score_path(dev, card), **phase_train_path(dev)}
+              "pdm_score_path": phase_pdm_score_path(dev, card),
+              "metric_caching_path": phase_metric_caching_path(dev, card), **phase_train_path(dev)}
 
     bf = torch.bfloat16
     kernels = []

@@ -7,12 +7,19 @@ the sensor containers (`Camera`, `Cameras`, `Lidar`), `EgoStatus`,
 are plain numpy on the host. Scenes build from the pickled OpenScene logs'
 frame dicts; reading a sensor blob from disk (`Cameras.from_camera_dict` or
 `Lidar.from_paths` with that sensor requested) raises until the dataset
-slice (ROADMAP item 18), and so does `build_map_api=True` until the map API
-(item 12). Without sensors, an `AgentInput` carries empty cameras and lidar.
+slice (ROADMAP item 18). Without sensors, an `AgentInput` carries empty
+cameras and lidar. With `build_map_api=True` (the default), a scene carries
+the port's `LocalMapAPI` of its location, loaded from
+`$NUPLAN_MAPS_ROOT/<map_name>.ddmap.pkl` (maps converted by either package
+load), or `None` when the root is unset or holds no such file, as in JAX. A
+map file that exists but does not load raises here, where JAX returns `None`:
+a scene without its map would plan by the constant-velocity fallback and
+cache a wrong reference without an error.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -24,11 +31,13 @@ from diffusiondrive_torch.common.geometry import (
     convert_absolute_to_relative_se2_array,
     quaternion_to_yaw,
 )
+from diffusiondrive_torch.planning.map_api import get_maps_api
 
 NAVSIM_INTERVAL_LENGTH: float = 0.5
 
+NUPLAN_MAPS_ROOT = os.environ.get("NUPLAN_MAPS_ROOT")
+
 SENSORS_NOT_PORTED = "reading sensor blobs from disk is not ported yet (ROADMAP item 18)"
-MAP_API_NOT_PORTED = "the map API is not ported yet (ROADMAP item 12); pass build_map_api=False"
 
 
 @dataclass(frozen=True)
@@ -315,8 +324,6 @@ class Scene:
     ) -> "Scene":
         if not scene_dict_list:
             raise ValueError("Scene list is empty!")
-        if build_map_api:
-            raise NotImplementedError(MAP_API_NOT_PORTED)
         current = scene_dict_list[num_history_frames - 1]
         scene_metadata = SceneMetadata(
             log_name=current["log_name"],
@@ -326,6 +333,7 @@ class Scene:
             num_history_frames=num_history_frames,
             num_future_frames=num_future_frames,
         )
+        map_api = cls._build_map_api(scene_metadata.map_name) if build_map_api else None
 
         frames: List[Frame] = []
         for frame_idx, frame_dict in enumerate(scene_dict_list):
@@ -342,7 +350,12 @@ class Scene:
                     cameras=Cameras.from_camera_dict(sensor_blobs_path, frame_dict["cams"], sensor_names),
                 )
             )
-        return Scene(scene_metadata=scene_metadata, map_api=None, frames=frames)
+        return Scene(scene_metadata=scene_metadata, map_api=map_api, frames=frames)
+
+    @classmethod
+    def _build_map_api(cls, map_name: str):
+        """The location's `LocalMapAPI`, or None without a maps root or its file."""
+        return get_maps_api(NUPLAN_MAPS_ROOT, map_name)
 
 
 @dataclass

@@ -573,3 +573,33 @@ def test_cuda_simulate_and_score_make_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.score.shape == (2, 2) and out.score.is_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_pdm_closed_planner_matches_cpu(cuda_device, tmp_path):
+    """One PDM-Closed call on the card against the same call on the CPU, on a
+    synthetic scene of the city grid with a parked vehicle ahead: the 15
+    proposals equal, the scores within 1e-4 and the choice by the tie rule
+    (`chip_smoke.check_planner_choice`), the poses equal; the card's call
+    makes one host sync, the scores' transfer."""
+    from chip_smoke import _syncs_in, check_planner_choice, city_map
+    from diffusiondrive_torch.common.dataclasses import SceneFilter
+    from diffusiondrive_torch.common.dataloader import SceneLoader
+    from diffusiondrive_torch.planning.pdm_closed.planner import PDMClosedPlanner
+    from diffusiondrive_torch.utils.synthetic import build_synthetic_log
+
+    logs_dir, blobs_dir = build_synthetic_log(tmp_path, num_frames=14, obstacle_x=40.0,
+                                              roadblock_ids=tuple(f"rb_0_{i}" for i in range(12)))
+    scene = SceneLoader(logs_dir, blobs_dir, SceneFilter(frame_interval=1), build_map_api=False).get_scene_from_token(
+        "demo_log_token_00003")
+    city = city_map()
+    card, cpu = PDMClosedPlanner(device=cuda_device), PDMClosedPlanner(device="cpu")
+    poses, _ = card.compute_planner_trajectory(scene, city)
+    want, _ = cpu.compute_planner_trajectory(scene, city)
+    assert card.proposals.shape == (15, 51, 11)
+    np.testing.assert_array_equal(card.proposals, cpu.proposals)
+    chosen = check_planner_choice("planner", card.scores, cpu.scores.astype(np.float64))
+    np.testing.assert_array_equal(poses, want)
+    np.testing.assert_array_equal(poses, card.proposals[chosen, :, :3])
+    syncs = _syncs_in(lambda: card.compute_planner_trajectory(scene, city))
+    assert len(syncs) == 1, syncs

@@ -280,15 +280,29 @@ def test_scene_and_cache_loaders_match_jax(synthetic_log, tmp_path):
     np.testing.assert_array_equal(cache_loader[0].tracks.poses, jcache_loader[0].tracks.poses)
 
 
-def test_sensor_blobs_and_map_api_raise_until_ported(synthetic_log):
+def test_sensor_blobs_and_map_api_raise_until_ported(synthetic_log, tmp_path, monkeypatch):
+    """Sensor blobs still raise (ROADMAP item 18). The map API is ported:
+    `SceneLoader` with its default arguments loads a scene, without a map
+    when no maps root is set, and with the port's `LocalMapAPI` when
+    `NUPLAN_MAPS_ROOT` holds the location's `.ddmap.pkl` written by JAX."""
+    import diffusiondrive_torch.common.dataclasses as port_dataclasses
+    from diffusiondrive_torch.planning.map_api import LocalMapAPI
+    from diffusiondrive_tpu.utils.synthetic import make_straight_map
+
     logs_dir, blobs_dir = synthetic_log
     scene_filter = SceneFilter(num_history_frames=4, num_future_frames=10, frame_interval=1)
     loader = SceneLoader(logs_dir, blobs_dir, scene_filter, SensorConfig.build_all_sensors([3]),
                          build_map_api=False)
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         loader.get_agent_input_from_token(loader.tokens[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        SceneLoader(logs_dir, blobs_dir, scene_filter).get_scene_from_token(loader.tokens[0])
+    monkeypatch.setattr(port_dataclasses, "NUPLAN_MAPS_ROOT", None)
+    scene = SceneLoader(logs_dir, blobs_dir, scene_filter).get_scene_from_token(loader.tokens[0])
+    assert scene.map_api is None and scene.scene_metadata.initial_token == loader.tokens[0]
+    make_straight_map().save(tmp_path / "us-ma-boston.ddmap.pkl")
+    monkeypatch.setattr(port_dataclasses, "NUPLAN_MAPS_ROOT", str(tmp_path))
+    scene = SceneLoader(logs_dir, blobs_dir, scene_filter).get_scene_from_token(loader.tokens[0])
+    assert isinstance(scene.map_api, LocalMapAPI) and scene.map_api.map_name == "synthetic"
+    assert [o.token for o in scene.map_api.lanes_of_roadblock("rb2")] == ["lane2"]
 
 
 # --------------------------------------------------------------------------- #
