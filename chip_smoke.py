@@ -156,7 +156,30 @@ line per phase, then one JSON line per kernel summary, then the result:
                the same gradient gate (the comparison point is smooth).
                ``fused``: the float32 step with both switches on (8 + 8
                attention and 24 conv3x3 launches), under the same gates.
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+8. ``cli_path`` every ported entry point (`diffusiondrive_torch/script/run_*.py`)
+               called in process with `--device` left at its default (the
+               card), on two synthetic logs (16 scenes) whose blobs lie on
+               disk as a real log's do (`write_cli_logs`: a 1920x1080 JPEG a
+               camera; a 100000-point cloud a log, `binary` PCD in one and
+               `binary_compressed` LZF in the other) and the city map of
+               5c: `run_dataset_caching` (the DiffusionDrive agent's
+               builders, full width), `run_training --config
+               default_training` scene-backed in bf16 (B=4, 4 steps: finite
+               losses, a checkpoint, exactly 1 LAP a step, the feature cache
+               not rewritten), `run_metric_caching` (1 worker),
+               `run_pdm_score` with the raw-sensor agent (exactly 1 splat, 2
+               stem and 12 conv3x3 a batch), the constant-velocity agent's
+               `run_pdm_score`, `run_create_submission_pickle` per log,
+               `run_merge_submission_pickles` and
+               `run_pdm_score_from_submission` (its CSV equal to the direct
+               one cell for cell), then the agent's
+               `run_create_submission_pickle` (finite predictions; 1 + 2 + 12
+               launches a B=1 forward). Prints the sensor load of a scene by
+               part (JPEG decode, PCD read, LZF), each CLI's wall seconds,
+               peak memory and launches, and which LZF decoder ran (the
+               native one must: no payload decoded in Python). Fails on any
+               ERROR log record or invalid row.
+9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -1532,6 +1555,233 @@ def phase_metric_caching_path(dev, card: str) -> dict:
     return counts
 
 
+CLI_LOGS = (("cli_binary", "binary", 40.0), ("cli_compressed", "binary_compressed", None))  # (log, PCD mode, parked x)
+CLI_SCENES_PER_LOG = 8   # 2 logs x 8 = 16 scenes, each a 14-frame window one frame apart
+CLI_POINTS = 100_000     # points of a log's merged lidar sweep
+CLI_TRAIN_BATCH = 4      # 16 scenes -> 4 train steps
+CLI_TEAM = ("team_name=t", "authors=a", "email=e", "institution=i", "country=c")
+
+
+def lzf_compress_reference(data: bytes) -> bytes:
+    """Tiny LZF compressor (literal runs only) — valid LZF, no back-refs
+    (copied from `tests/test_native.py`)."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        run = min(32, len(data) - i)
+        out.append(run - 1)
+        out += data[i : i + run]
+        i += run
+    return bytes(out)
+
+
+def write_cli_logs(root: Path) -> tuple:
+    """Two synthetic OpenScene logs (`utils/synthetic.py`, the city route of
+    `metric_caching_path`) whose blobs lie on disk as a real log's do: one
+    1920x1080 JPEG per camera (a seeded smooth image with noise) and one
+    `CLI_POINTS`-point cloud per log, as `binary` PCD in one log and
+    `binary_compressed` (LZF) in the other. Returns (logs_dir, blobs_dir)."""
+    import pickle
+
+    import cv2
+
+    from diffusiondrive_torch.entry import example_point_cloud
+    from diffusiondrive_torch.utils.synthetic import CAM_NAMES, build_synthetic_log
+
+    rng = np.random.default_rng(13)
+    for name, _, obstacle in CLI_LOGS:
+        logs_dir, blobs_dir = build_synthetic_log(root, num_frames=CLI_SCENES_PER_LOG + 13, log_name=name,
+                                                  obstacle_x=obstacle, roadblock_ids=MC_ROUTE)
+    for cam in CAM_NAMES:
+        base = cv2.resize(rng.integers(0, 256, (34, 60, 3), dtype=np.uint8), (1920, 1080),
+                          interpolation=cv2.INTER_CUBIC)
+        img = np.clip(base.astype(np.int16) + rng.integers(-12, 13, base.shape), 0, 255).astype(np.uint8)
+        cv2.imwrite(str(blobs_dir / "cams" / f"{cam.lower()}.jpg"), img)
+    fields = "x y z intensity ring lidar_id"
+    for name, mode, _ in CLI_LOGS:
+        pc = example_point_cloud(rng, CLI_POINTS)
+        header = (f"VERSION 0.7\nFIELDS {fields}\nSIZE 4 4 4 4 4 4\nTYPE F F F F F F\nCOUNT 1 1 1 1 1 1\n"
+                  f"WIDTH {CLI_POINTS}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {CLI_POINTS}\nDATA {mode}\n")
+        with open(blobs_dir / "lidar" / f"{name}.pcd", "wb") as fp:
+            fp.write(header.encode("ascii"))
+            if mode == "binary":
+                fp.write(pc.T.tobytes())
+            else:   # column-major payload (all xs, then all ys, ...)
+                payload = pc.tobytes()
+                comp = lzf_compress_reference(payload)
+                fp.write(np.array([len(comp), len(payload)], "<u4").tobytes() + comp)
+        with open(logs_dir / f"{name}.pkl", "rb") as fp:
+            frames = pickle.load(fp)
+        for frame in frames:
+            frame["lidar_path"] = f"lidar/{name}.pcd"
+            for cam, spec in frame["cams"].items():
+                frame["cams"][cam] = {**spec, "data_path": f"cams/{cam.lower()}.jpg"}
+        with open(logs_dir / f"{name}.pkl", "wb") as fp:
+            pickle.dump(frames, fp)
+    return logs_dir, blobs_dir
+
+
+def phase_cli_path(dev, card: str) -> dict:
+    """Every ported entry point, in process, with `--device` left at its
+    default (the card), on two synthetic logs whose sensor blobs lie on
+    disk (`write_cli_logs`) and the city map of `metric_caching_path`
+    under `NUPLAN_MAPS_ROOT`: `run_dataset_caching` (the DiffusionDrive
+    agent's builders at full width), `run_training --config
+    default_training` scene-backed in bf16 (B=4, 4 steps), `run_metric_caching`
+    (1 worker), `run_pdm_score` with the raw-sensor agent, the
+    constant-velocity agent's `run_pdm_score`, two `run_create_submission_pickle`
+    (one per log), `run_merge_submission_pickles` and
+    `run_pdm_score_from_submission` (its CSV must equal the direct one
+    cell for cell), and the agent's `run_create_submission_pickle`. Fails
+    on any ERROR record, an invalid row, a non-finite loss or prediction,
+    a launch count off (1 LAP a train step; 1 splat, 2 stem, 12 conv3x3 a
+    scoring batch and a B=1 forward), a rewritten feature cache, or an
+    LZF payload decoded in Python. Returns the launches of the whole phase."""
+    import csv
+    import logging
+    import pickle
+
+    import diffusiondrive_torch.common.dataclasses as scene_types
+    from diffusiondrive_torch.common.dataclasses import _load_image, _lzf_decompress, load_pcd
+    from diffusiondrive_torch.native import get_native
+    from diffusiondrive_torch.script import (run_create_submission_pickle, run_dataset_caching,
+                                             run_merge_submission_pickles, run_metric_caching, run_pdm_score,
+                                             run_pdm_score_from_submission, run_training)
+
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+
+    _, _, Errors = _runner_helpers()
+    fns = {"splat": histogram2d, **_launch_counters()}
+    maps_root = scene_types.NUPLAN_MAPS_ROOT
+    errors = Errors()
+    logging.getLogger().addHandler(errors)
+    walls, peaks, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        logs_dir, blobs_dir = write_cli_logs(tmp / "data")
+        city_map().save(tmp / "maps" / "synthetic.ddmap.pkl")
+        split = tmp / "split.yaml"
+        split.write_text("frame_interval: 1\n")
+        for name, *_ in CLI_LOGS:
+            (tmp / f"split_{name}.yaml").write_text(f"frame_interval: 1\nlog_names: [{name}]\n")
+        setup_s = time.perf_counter() - t0
+
+        # the sensor load of one scene of each log, by part
+        cams = [blobs_dir / "cams" / f"{c}.jpg" for c in ("cam_l0", "cam_f0", "cam_r0")]
+        load = {}
+        for label, fn in (("jpeg_decode_ms", lambda: [_load_image(c) for c in cams]),
+                          ("pcd_binary_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_binary.pcd")),
+                          ("pcd_binary_compressed_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_compressed.pcd"))):
+            fn()
+            t = time.perf_counter()
+            for _ in range(3):
+                fn()
+            load[label] = (time.perf_counter() - t) / 3 * 1e3
+        raw = (blobs_dir / "lidar" / "cli_compressed.pcd").read_bytes()
+        body = raw[raw.find(b"\n", raw.find(b"DATA")) + 1:]
+        comp, size = np.frombuffer(body[:8], "<u4")
+        t = time.perf_counter()
+        plain = _lzf_decompress(body[8:8 + int(comp)], int(size))
+        load["lzf_ms"] = (time.perf_counter() - t) * 1e3
+        # the loaders decode LZF natively whenever the library loads (else in Python, with a warning)
+        if get_native() is None or len(plain) != CLI_POINTS * 24:
+            raise AssertionError("cli_path: the native LZF decoder did not build or did not decode")
+        load["lzf_mb"] = len(plain) / 1e6
+        log("cli_path setup", card=card, logs=[m[0] for m in CLI_LOGS], scenes=len(CLI_LOGS) * CLI_SCENES_PER_LOG,
+            points=CLI_POINTS, camera="1920x1080 JPEG", setup_s=setup_s, sensor_load_per_scene=load,
+            jpeg_bytes=sum(c.stat().st_size for c in cams) // 3)
+
+        def run(label, main, *argv):
+            """One CLI in process: wall s, peak memory, launches."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for f in fns.values():
+                f.launches = 0
+            t = time.perf_counter()
+            out = main(list(argv))
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t
+            peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+            launches[label] = {k: f.launches for k, f in fns.items() if f.launches}
+            if errors.records:
+                raise AssertionError(f"cli_path: {label} logged errors: {errors.records[:3]}")
+            return out
+
+        scene_types.NUPLAN_MAPS_ROOT = str(tmp / "maps")   # as the environment variable would set it
+        data = [f"navsim_log_path={logs_dir}", f"sensor_blobs_path={blobs_dir}", f"split={split}"]
+        cache = tmp / "training_cache"
+        try:
+            run("run_dataset_caching", run_dataset_caching.main, "--config", "default_dataset_caching", *data,
+                f"cache_path={cache}", f"output_dir={tmp / 'out_dataset'}")
+            files = sorted(cache.glob("*/*/*.gz"))
+            if len(files) != 2 * len(CLI_LOGS) * CLI_SCENES_PER_LOG:
+                raise AssertionError(f"cli_path: {len(files)} feature/target files")
+            stamps = [f.stat().st_mtime_ns for f in files]
+            out = tmp / "out_training"
+            run("run_training", run_training.main, "--config", "default_training", *data, f"cache_path={cache}",
+                f"output_dir={out}", "epochs=1", f"batch_size={CLI_TRAIN_BATCH}")
+            train_rows = [json.loads(r) for r in (out / "metrics.jsonl").read_text().splitlines()]
+            steps = len(CLI_LOGS) * CLI_SCENES_PER_LOG // CLI_TRAIN_BATCH
+            if len(train_rows) != steps or not all(np.isfinite(r["loss"]) for r in train_rows):
+                raise AssertionError(f"cli_path: training rows {train_rows}")
+            if not (out / "epoch_0000" / "state.pt").exists() or launches["run_training"].get("lap") != steps:
+                raise AssertionError(f"cli_path: run_training launches {launches['run_training']}, or no checkpoint")
+            if [f.stat().st_mtime_ns for f in files] != stamps:
+                raise AssertionError("cli_path: run_training rewrote the feature cache")
+            mc = tmp / "metric_cache"
+            run("run_metric_caching", run_metric_caching.main, "--config", "default_metric_caching", data[0], data[2],
+                f"metric_cache_path={mc}", f"output_dir={tmp / 'out_mc'}", "worker.max_workers=1")
+            scores = {}
+            for label, agent, batch in (("run_pdm_score", ["agent=diffusiondrive_agent",
+                                                           "agent.preprocess_on_device=true"], 32),
+                                        ("run_pdm_score cv", [], 16)):
+                csv_path = run(label, run_pdm_score.main, "--config", "default_evaluation", *agent, *data,
+                               f"metric_cache_path={mc}", f"output_dir={tmp / label.replace(' ', '_')}",
+                               f"batch_size={batch}")
+                with open(csv_path, newline="") as fp:
+                    scores[label] = list(csv.reader(fp))
+                if len(scores[label]) != 18 or not all(r[2] == "True" for r in scores[label][1:]):
+                    raise AssertionError(f"cli_path: {label} rows {scores[label]}")
+            if launches["run_pdm_score"] != {"splat": 1, "stem": 2, "conv3x3": 12}:
+                raise AssertionError(f"cli_path: run_pdm_score launches {launches['run_pdm_score']}")
+            subs = []
+            for name, *_ in CLI_LOGS:
+                subs.append(run(f"run_create_submission_pickle cv {name}", run_create_submission_pickle.main,
+                                "--config", "default_submission", "agent=constant_velocity_agent", *data[:2],
+                                f"split={tmp / f'split_{name}.yaml'}", f"output_dir={tmp / f'sub_{name}'}", *CLI_TEAM))
+            run("run_merge_submission_pickles", run_merge_submission_pickles.main, *map(str, subs),
+                "--output", str(tmp / "merged.pkl"))
+            csv_path = run("run_pdm_score_from_submission", run_pdm_score_from_submission.main, "--submission",
+                           str(tmp / "merged.pkl"), "--metric-cache-path", str(mc), "--output-dir",
+                           str(tmp / "out_from_sub"), "--batch-size", "16")
+            with open(csv_path, newline="") as fp:
+                scores["run_pdm_score_from_submission"] = list(csv.reader(fp))
+            if scores["run_pdm_score_from_submission"] != scores["run_pdm_score cv"]:
+                raise AssertionError("cli_path: the submission-scored CSV is not run_pdm_score's")
+            sub = run("run_create_submission_pickle", run_create_submission_pickle.main, "--config",
+                      "default_submission", "agent=diffusiondrive_agent", "agent.preprocess_on_device=true", *data,
+                      f"output_dir={tmp / 'sub_agent'}", *CLI_TEAM)
+            with open(sub, "rb") as fp:
+                preds = pickle.load(fp)["predictions"][0]
+            n = len(CLI_LOGS) * CLI_SCENES_PER_LOG
+            if len(preds) != n or not all(np.isfinite(t.poses).all() for t in preds.values()):
+                raise AssertionError(f"cli_path: {len(preds)} agent predictions, or a non-finite one")
+            if launches["run_create_submission_pickle"] != {"splat": n, "stem": 2 * n, "conv3x3": 12 * n}:
+                raise AssertionError(f"cli_path: agent submission launches {launches['run_create_submission_pickle']}")
+        finally:
+            scene_types.NUPLAN_MAPS_ROOT = maps_root
+            logging.getLogger().removeHandler(errors)
+    total = {k: sum(c.get(k, 0) for c in launches.values())
+             for k in ("lap", "splat", "stem", "conv3x3", "attention_fwd", "attention_bwd")}
+    log("cli_path runs", card=card, wall_s=walls, phase_s=sum(walls.values()), peak_mem_gb=peaks,
+        launches=launches, train_losses=[r["loss"] for r in train_rows],
+        agent_mean_score=float(scores["run_pdm_score"][-1][-1]), cv_mean_score=float(scores["run_pdm_score cv"][-1][-1]),
+        valid_rows=len(scores["run_pdm_score"]) - 2, submission_csv_equal=True, lzf_decoder="native")
+    log("cli_path launches", **total)
+    return total
+
+
 LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
 
 
@@ -1929,7 +2179,8 @@ def main() -> int:
     summary.update(phase_lap(dev, build_logs))
     counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev),
               "pdm_score_path": phase_pdm_score_path(dev, card),
-              "metric_caching_path": phase_metric_caching_path(dev, card), **phase_train_path(dev)}
+              "metric_caching_path": phase_metric_caching_path(dev, card), **phase_train_path(dev),
+              "cli_path": phase_cli_path(dev, card)}
 
     bf = torch.bfloat16
     kernels = []

@@ -1,25 +1,29 @@
 """Scene and sensor data model.
 
 Copies of `diffusiondrive_tpu/common/dataclasses.py`: `TrajectorySampling`,
-the sensor containers (`Camera`, `Cameras`, `Lidar`), `EgoStatus`,
-`AgentInput`, `Annotations`, `Trajectory`, the scene types (`SceneMetadata`,
-`Frame`, `Scene`, `SceneFilter`), `SensorConfig` and `PDMResults`. Arrays
-are plain numpy on the host. Scenes build from the pickled OpenScene logs'
-frame dicts; reading a sensor blob from disk (`Cameras.from_camera_dict` or
-`Lidar.from_paths` with that sensor requested) raises until the dataset
-slice (ROADMAP item 18). Without sensors, an `AgentInput` carries empty
-cameras and lidar. With `build_map_api=True` (the default), a scene carries
-the port's `LocalMapAPI` of its location, loaded from
-`$NUPLAN_MAPS_ROOT/<map_name>.ddmap.pkl` (maps converted by either package
-load), or `None` when the root is unset or holds no such file, as in JAX. A
-map file that exists but does not load raises here, where JAX returns `None`:
-a scene without its map would plan by the constant-velocity fallback and
-cache a wrong reference without an error.
+the sensor containers (`Camera`, `Cameras`, `Lidar`) with their disk
+loaders (`_load_image` by cv2, imported when a camera is read; `load_pcd`
+for ascii, binary and binary_compressed PCD; `_lzf_decompress`),
+`EgoStatus`, `AgentInput`, `Annotations`, `Trajectory`, the scene types
+(`SceneMetadata`, `Frame`, `Scene`, `SceneFilter`), `SensorConfig` and
+`PDMResults`. Arrays are plain numpy on the host. Scenes build from the
+pickled OpenScene logs' frame dicts; a requested sensor is read from its
+blob under the sensor root, others stay empty. LZF runs in the port's
+native library (`native/`), or in Python where that cannot be built, as
+in JAX. With `build_map_api=True`
+(the default), a scene carries the port's `LocalMapAPI` of its location,
+loaded from `$NUPLAN_MAPS_ROOT/<map_name>.ddmap.pkl` (maps converted by
+either package load), or `None` when the root is unset or holds no such
+file, as in JAX. A map file that exists but does not load raises here,
+where JAX returns `None`: a scene without its map would plan by the
+constant-velocity fallback and cache a wrong reference without an error.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import struct
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -36,9 +40,6 @@ from diffusiondrive_torch.planning.map_api import get_maps_api
 NAVSIM_INTERVAL_LENGTH: float = 0.5
 
 NUPLAN_MAPS_ROOT = os.environ.get("NUPLAN_MAPS_ROOT")
-
-SENSORS_NOT_PORTED = "reading sensor blobs from disk is not ported yet (ROADMAP item 18)"
-
 
 @dataclass(frozen=True)
 class TrajectorySampling:
@@ -96,12 +97,31 @@ class Cameras:
     def from_camera_dict(
         cls, sensor_blobs_path: Path, camera_dict: Dict[str, Any], sensor_names: List[str]
     ) -> "Cameras":
-        """The rig of a per-frame log dict; cameras not requested stay empty
-        and a requested one raises (its image is a blob on disk)."""
-        requested = [name for name in camera_dict if name.lower() in sensor_names]
-        if requested:
-            raise NotImplementedError(f"{requested}: {SENSORS_NOT_PORTED}")
-        return Cameras(**{name: Camera() for name in CAMERA_NAMES})
+        """Load the requested cameras from a per-frame log dict; others stay empty."""
+        data: Dict[str, Camera] = {}
+        for camera_name, spec in camera_dict.items():
+            identifier = camera_name.lower()
+            if identifier in sensor_names:
+                data[identifier] = Camera(
+                    image=_load_image(Path(sensor_blobs_path) / spec["data_path"]),
+                    sensor2lidar_rotation=spec.get("sensor2lidar_rotation"),
+                    sensor2lidar_translation=spec.get("sensor2lidar_translation"),
+                    intrinsics=spec.get("cam_intrinsic"),
+                    distortion=spec.get("distortion"),
+                )
+            else:
+                data[identifier] = Camera()
+        return Cameras(**{name: data.get(name, Camera()) for name in CAMERA_NAMES})
+
+
+def _load_image(path: Path) -> np.ndarray:
+    """Decode an image file to an (H, W, 3) uint8 RGB array (cv2)."""
+    import cv2
+
+    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(f"Could not read image: {path}")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 @dataclass
@@ -112,10 +132,92 @@ class Lidar:
 
     @classmethod
     def from_paths(cls, sensor_blobs_path: Path, lidar_path: Path, sensor_names: List[str]) -> "Lidar":
-        """An empty `Lidar` unless "lidar_pc" is requested, which raises."""
         if "lidar_pc" in sensor_names:
-            raise NotImplementedError(f"{lidar_path}: {SENSORS_NOT_PORTED}")
+            return Lidar(load_pcd(Path(sensor_blobs_path) / lidar_path))
         return Lidar()
+
+
+_PCD_TYPES = {("F", 4): "f4", ("F", 8): "f8", ("U", 1): "u1", ("U", 2): "u2", ("U", 4): "u4",
+              ("I", 1): "i1", ("I", 2): "i2", ("I", 4): "i4"}
+
+
+def load_pcd(path: Path) -> np.ndarray:
+    """Minimal PCD reader (ascii / binary / binary_compressed) -> (fields, N) float32."""
+    with open(path, "rb") as fp:
+        raw = fp.read()
+    header_end = raw.find(b"DATA")
+    newline = raw.find(b"\n", header_end)
+    header_lines = raw[:newline].decode("ascii", errors="replace").splitlines()
+    meta: Dict[str, List[str]] = {}
+    for line in header_lines:
+        if line.startswith("#") or not line.strip():
+            continue
+        key, *vals = line.split()
+        meta[key.upper()] = vals
+    fields = meta["FIELDS"]
+    sizes = [int(s) for s in meta["SIZE"]]
+    types = meta["TYPE"]
+    counts = [int(c) for c in meta.get("COUNT", ["1"] * len(fields))]
+    num_points = int(meta["POINTS"][0])
+    data_mode = meta["DATA"][0].lower()
+    body = raw[newline + 1:]
+    dtype = np.dtype([(name, _PCD_TYPES[(t, s)], (c,)) if c > 1 else (name, _PCD_TYPES[(t, s)])
+                      for name, t, s, c in zip(fields, types, sizes, counts)])
+
+    if data_mode == "ascii":
+        arr = np.loadtxt(io.BytesIO(body), dtype=np.float32, max_rows=num_points)
+        return arr.T.astype(np.float32)
+    if data_mode == "binary":
+        structured = np.frombuffer(body, dtype=dtype, count=num_points)
+    elif data_mode == "binary_compressed":
+        comp_size, uncomp_size = struct.unpack("<II", body[:8])
+        decompressed = _lzf_decompress(body[8:8 + comp_size], uncomp_size)
+        # binary_compressed stores the data column-major (all xs, then all ys, ...)
+        structured = np.empty(num_points, dtype=dtype)
+        offset = 0
+        for name, t, s, c in zip(fields, types, sizes, counts):
+            nbytes = s * c * num_points
+            col = np.frombuffer(decompressed[offset:offset + nbytes], dtype=_PCD_TYPES[(t, s)])
+            structured[name] = col.reshape(num_points, c) if c > 1 else col
+            offset += nbytes
+    else:
+        raise ValueError(f"Unsupported PCD DATA mode: {data_mode}")
+
+    cols = [np.asarray(structured[name], dtype=np.float32).reshape(num_points, -1) for name in fields]
+    return np.concatenate(cols, axis=1).T.copy()
+
+
+def _lzf_decompress(data: bytes, expected_size: int) -> bytes:
+    """LZF decompression (PCD binary_compressed payloads): the native
+    library when it builds, the pure-Python decoder otherwise."""
+    from diffusiondrive_torch.native import lzf_decompress
+
+    native = lzf_decompress(data, expected_size)
+    return native if native is not None else _lzf_decompress_python(data, expected_size)
+
+
+def _lzf_decompress_python(data: bytes, expected_size: int) -> bytes:
+    """The pure-Python LZF decoder."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n and len(out) < expected_size:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:  # literal run
+            run = ctrl + 1
+            out += data[i:i + run]
+            i += run
+        else:  # back reference
+            length = ctrl >> 5
+            if length == 7:
+                length += data[i]
+                i += 1
+            ref = len(out) - ((ctrl & 0x1F) << 8) - data[i] - 1
+            i += 1
+            for _ in range(length + 2):
+                out.append(out[ref])
+                ref += 1
+    return bytes(out)
 
 
 @dataclass

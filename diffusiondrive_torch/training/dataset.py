@@ -1,13 +1,14 @@
-"""Feature/target cache reader (counterpart of `diffusiondrive_tpu/training/dataset.py`).
+"""Feature/target datasets and their cache (counterpart of `diffusiondrive_tpu/training/dataset.py`).
 
 A cache holds per-token directories ``<cache>/<log>/<token>/<builder>.gz``,
 each a gzip pickle of one builder's numpy dict, the JAX package's format:
 the same cache directory yields the same batches, in the same order, in
-both packages. `batch_iterator` collates numpy batches on host threads; the
-trainer copies each batch to the device.
-
-The scene-backed `Dataset` that computes and writes the cache from OpenScene
-logs comes with the dataset slice of the port (it needs the disk loaders).
+both packages. The scene-backed `Dataset` computes the features and
+targets from OpenScene logs (sensors read from disk) and, given a cache
+path, writes the cache on a thread pool, resumably: a token's file is
+written only when it is missing, or always with `force_cache_computation`.
+`CacheOnlyDataset` trains from a cache alone. `batch_iterator` collates
+numpy batches on host threads; the trainer copies each batch to the device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from diffusiondrive_torch.common.dataloader import SceneLoader
 from diffusiondrive_torch.training.abstract_feature_target_builder import (
     AbstractFeatureBuilder,
     AbstractTargetBuilder,
@@ -36,6 +38,78 @@ def load_feature_target(path: Path) -> Dict[str, np.ndarray]:
     program (or the JAX package) wrote."""
     with gzip.open(path, "rb") as fp:
         return pickle.load(fp)
+
+
+def load_token(token_dir: Path, feature_builders: List[AbstractFeatureBuilder],
+               target_builders: List[AbstractTargetBuilder]) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """One token's cached (features, targets)."""
+    features: Dict[str, np.ndarray] = {}
+    targets: Dict[str, np.ndarray] = {}
+    for b in feature_builders:
+        features.update(load_feature_target(token_dir / f"{b.get_unique_name()}.gz"))
+    for b in target_builders:
+        targets.update(load_feature_target(token_dir / f"{b.get_unique_name()}.gz"))
+    return features, targets
+
+
+class Dataset:
+    """Scene-backed dataset with an optional, resumable disk cache."""
+
+    def __init__(self, scene_loader: SceneLoader, feature_builders: List[AbstractFeatureBuilder],
+                 target_builders: List[AbstractTargetBuilder], cache_path: Optional[str] = None,
+                 force_cache_computation: bool = False, num_workers: int = 8):
+        self._scene_loader = scene_loader
+        self._feature_builders = feature_builders
+        self._target_builders = target_builders
+        self._cache_path = Path(cache_path) if cache_path else None
+        self._force = force_cache_computation
+        if self._cache_path is not None:
+            self.cache_dataset(num_workers)
+
+    def __len__(self) -> int:
+        return len(self._scene_loader)
+
+    def _token_dir(self, token: str) -> Path:
+        log_name = self._scene_loader.scene_frames_dicts[token][0]["log_name"]
+        return self._cache_path / log_name / token
+
+    def _cache_token(self, token: str) -> None:
+        token_dir = self._token_dir(token)
+        token_dir.mkdir(parents=True, exist_ok=True)
+        builders = list(self._feature_builders) + list(self._target_builders)
+        missing = [b for b in builders
+                   if self._force or not (token_dir / f"{b.get_unique_name()}.gz").exists()]
+        if not missing:
+            return
+        scene = self._scene_loader.get_scene_from_token(token)
+        agent_input = scene.get_agent_input()
+        for builder in missing:
+            if isinstance(builder, AbstractFeatureBuilder):
+                data = builder.compute_features(agent_input)
+            else:
+                data = builder.compute_targets(scene)
+            dump_feature_target(data, token_dir / f"{builder.get_unique_name()}.gz")
+
+    def cache_dataset(self, num_workers: int = 8) -> None:
+        """Compute the missing feature and target files of every token."""
+        if self._cache_path is None:
+            raise ValueError("cache_dataset needs a cache_path")
+        with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            list(pool.map(self._cache_token, self._scene_loader.tokens))
+
+    def __getitem__(self, idx: int) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        token = self._scene_loader.tokens[idx]
+        if self._cache_path is not None:
+            return load_token(self._token_dir(token), self._feature_builders, self._target_builders)
+        features: Dict[str, np.ndarray] = {}
+        targets: Dict[str, np.ndarray] = {}
+        scene = self._scene_loader.get_scene_from_token(token)
+        agent_input = scene.get_agent_input()
+        for b in self._feature_builders:
+            features.update(b.compute_features(agent_input))
+        for b in self._target_builders:
+            targets.update(b.compute_targets(scene))
+        return features, targets
 
 
 class CacheOnlyDataset:
@@ -64,14 +138,7 @@ class CacheOnlyDataset:
         return [d.name for d in self._token_dirs]
 
     def __getitem__(self, idx: int) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-        token_dir = self._token_dirs[idx]
-        features: Dict[str, np.ndarray] = {}
-        targets: Dict[str, np.ndarray] = {}
-        for b in self._feature_builders:
-            features.update(load_feature_target(token_dir / f"{b.get_unique_name()}.gz"))
-        for b in self._target_builders:
-            targets.update(load_feature_target(token_dir / f"{b.get_unique_name()}.gz"))
-        return features, targets
+        return load_token(self._token_dirs[idx], self._feature_builders, self._target_builders)
 
 
 def collate(samples: List[Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]) -> Dict[str, np.ndarray]:

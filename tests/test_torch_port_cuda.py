@@ -603,3 +603,97 @@ def test_cuda_pdm_closed_planner_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_array_equal(poses, card.proposals[chosen, :, :3])
     syncs = _syncs_in(lambda: card.compute_planner_trajectory(scene, city))
     assert len(syncs) == 1, syncs
+
+
+_TINY_AGENT = ("agent.config.image_architecture=resnet34", "agent.config.lidar_architecture=resnet34",
+               "agent.config.camera_height=64", "agent.config.camera_width=256",
+               "agent.config.lidar_resolution_height=64", "agent.config.lidar_resolution_width=64",
+               "agent.config.pixels_per_meter=1.0", "agent.config.img_vert_anchors=2",
+               "agent.config.img_horz_anchors=8", "agent.config.lidar_vert_anchors=2",
+               "agent.config.lidar_horz_anchors=2", "agent.config.bev_pixel_height=32",
+               "agent.config.bev_pixel_width=64")
+
+
+def _cli_logs(tmp_path):
+    """A synthetic log with its sensor blobs on disk (a 1920x1080 JPEG, a
+    binary PCD), a split of every 14-frame window, and metric caches of the
+    pipeline's padded shapes (`chip_smoke.pdm_road_cache`) for its scenes."""
+    from chip_smoke import pdm_road_cache
+    from diffusiondrive_torch.common.dataclasses import SceneFilter
+    from diffusiondrive_torch.common.dataloader import SceneLoader
+    from diffusiondrive_torch.utils.synthetic import build_synthetic_log
+
+    logs_dir, blobs_dir = build_synthetic_log(tmp_path / "data", num_frames=17, with_sensor_blobs=True)
+    split = tmp_path / "split.yaml"
+    split.write_text("frame_interval: 1\n")
+    tokens = SceneLoader(logs_dir, blobs_dir, SceneFilter(frame_interval=1), build_map_api=False).tokens
+    for i, tok in enumerate(tokens):
+        pdm_road_cache(tok, seed=i).save(tmp_path / "mc" / "demo_log" / tok / "metric_cache.npz")
+    return [f"navsim_log_path={logs_dir}", f"sensor_blobs_path={blobs_dir}", f"split={split}",
+            f"metric_cache_path={tmp_path / 'mc'}"], tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agent", [("agent=constant_velocity_agent",),
+                                   ("agent=diffusiondrive_agent", "agent.dtype=float32", *_TINY_AGENT)],
+                         ids=["cv", "diffusiondrive_f32"])
+def test_cuda_run_pdm_score_cli_matches_cpu(cuda_device, tmp_path, agent, monkeypatch):
+    """`run_pdm_score --config default_evaluation` scene-backed (sensors read
+    from disk), on the card by default and with `--device cpu`: every row
+    valid, the discrete sub-scores equal, the floats within 1e-4 x max(1, |CPU|).
+    The agent's diffusion noise comes from one CPU draw on both devices (its
+    own generator draws on the agent's device: another stream on each)."""
+    import csv
+
+    from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
+    from diffusiondrive_torch.script import run_pdm_score
+
+    predict = DiffusionDriveAgent.predict
+
+    def predict_with_cpu_noise(self, tensors, diffusion_noise=None):
+        shape = (tensors["status_feature"].shape[0], self.config.ego_fut_mode, self.config.num_poses, 2)
+        noise = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+        return predict(self, tensors, diffusion_noise=noise.to(self.device))
+
+    monkeypatch.setattr(DiffusionDriveAgent, "predict", predict_with_cpu_noise)
+
+    data, tokens = _cli_logs(tmp_path)
+    rows = {}
+    for dev in ("card", "cpu"):
+        argv = ["--device", "cpu"] if dev == "cpu" else []
+        out = run_pdm_score.main([*argv, "--config", "default_evaluation", *agent, *data,
+                                  f"output_dir={tmp_path / dev}", "batch_size=4"])
+        with open(out, newline="") as fp:
+            rows[dev] = list(csv.reader(fp))
+    assert rows["card"][0] == rows["cpu"][0] and len(rows["card"]) == len(tokens) + 2
+    floats = {rows["cpu"][0].index(c) for c in ("ego_progress", "score")}
+    for got, want in zip(rows["card"][1:], rows["cpu"][1:]):
+        assert got[:3] == want[:3] and got[2] == "True", (got, want)
+        for j in range(3, len(got)):
+            if j in floats:
+                assert abs(float(got[j]) - float(want[j])) <= 1e-4 * max(1.0, abs(float(want[j]))), (got, want)
+            else:
+                assert got[j] == want[j], (got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_run_training_cli_scene_backed(cuda_device, tmp_path):
+    """`run_training --config default_training` on the scene-backed Dataset
+    (sensors read from disk, the cache written first), float32 at the tiny
+    widths, on the card by default and with `--device cpu`: finite losses,
+    one row a step, a checkpoint, one LAP launch a step on the card."""
+    import json
+
+    from diffusiondrive_torch.script import run_training
+
+    data, tokens = _cli_logs(tmp_path)
+    for dev in ("card", "cpu"):
+        argv = ["--device", "cpu"] if dev == "cpu" else []
+        batched_linear_sum_assignment.launches = 0
+        run_training.main([*argv, "--config", "default_training", *data[:3], f"cache_path={tmp_path / dev / 'c'}",
+                           f"output_dir={tmp_path / dev}", "epochs=1", "batch_size=2", "precision=fp32",
+                           *_TINY_AGENT])
+        rows = [json.loads(r) for r in (tmp_path / dev / "metrics.jsonl").read_text().splitlines()]
+        assert len(rows) == len(tokens) // 2 and all(np.isfinite(r["loss"]) for r in rows), rows
+        assert (tmp_path / dev / "epoch_0000" / "state.pt").exists()
+        assert batched_linear_sum_assignment.launches == (len(rows) if dev == "card" else 0)

@@ -29,6 +29,15 @@ from test_train import CAM_H, CAM_W, LID, tiny_config
 
 REPO = Path(__file__).resolve().parent.parent
 
+# Two intra-op threads a test process. The suite runs in 6 xdist workers on
+# an 8-core host, and torch's default (a thread per core) made the port's
+# CPU-heavy tests spin against each other: the trainer-resume test takes
+# 33 s alone with 8 threads (83 s of CPU) and 31 s with 2 (35 s of CPU),
+# but ~10x longer under the full run's load. Every worker collects this
+# module (the port's tests import its `_port_config`), so it holds for
+# the whole run.
+torch.set_num_threads(2)
+
 
 def _port_config(jcfg):
     """The port's config with the same field values as the JAX one."""

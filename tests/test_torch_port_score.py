@@ -280,11 +280,12 @@ def test_scene_and_cache_loaders_match_jax(synthetic_log, tmp_path):
     np.testing.assert_array_equal(cache_loader[0].tracks.poses, jcache_loader[0].tracks.poses)
 
 
-def test_sensor_blobs_and_map_api_raise_until_ported(synthetic_log, tmp_path, monkeypatch):
-    """Sensor blobs still raise (ROADMAP item 18). The map API is ported:
-    `SceneLoader` with its default arguments loads a scene, without a map
-    when no maps root is set, and with the port's `LocalMapAPI` when
-    `NUPLAN_MAPS_ROOT` holds the location's `.ddmap.pkl` written by JAX."""
+def test_sensor_blobs_load_from_disk_and_map_api(synthetic_log, tmp_path, monkeypatch):
+    """Sensor blobs load from disk: the requested frame's cameras and cloud
+    equal JAX's, the other frames stay empty. The map API: `SceneLoader`
+    with its default arguments loads a scene, without a map when no maps
+    root is set, and with the port's `LocalMapAPI` when `NUPLAN_MAPS_ROOT`
+    holds the location's `.ddmap.pkl` written by JAX."""
     import diffusiondrive_torch.common.dataclasses as port_dataclasses
     from diffusiondrive_torch.planning.map_api import LocalMapAPI
     from diffusiondrive_tpu.utils.synthetic import make_straight_map
@@ -293,8 +294,15 @@ def test_sensor_blobs_and_map_api_raise_until_ported(synthetic_log, tmp_path, mo
     scene_filter = SceneFilter(num_history_frames=4, num_future_frames=10, frame_interval=1)
     loader = SceneLoader(logs_dir, blobs_dir, scene_filter, SensorConfig.build_all_sensors([3]),
                          build_map_api=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        loader.get_agent_input_from_token(loader.tokens[0])
+    jloader = JSceneLoader(logs_dir, blobs_dir, JSceneFilter(num_history_frames=4, num_future_frames=10,
+                                                             frame_interval=1),
+                           JSensorConfig.build_all_sensors([3]), build_map_api=False)
+    got = loader.get_agent_input_from_token(loader.tokens[0])
+    want = jloader.get_agent_input_from_token(loader.tokens[0])
+    assert got.cameras[2].cam_f0.image is None and got.lidars[2].lidar_pc is None
+    assert got.cameras[3].cam_f0.image.shape == (1080, 1920, 3) and got.lidars[3].lidar_pc.shape == (6, 500)
+    np.testing.assert_array_equal(got.cameras[3].cam_r2.image, want.cameras[3].cam_r2.image)
+    np.testing.assert_array_equal(got.lidars[3].lidar_pc, want.lidars[3].lidar_pc)
     monkeypatch.setattr(port_dataclasses, "NUPLAN_MAPS_ROOT", None)
     scene = SceneLoader(logs_dir, blobs_dir, scene_filter).get_scene_from_token(loader.tokens[0])
     assert scene.map_api is None and scene.scene_metadata.initial_token == loader.tokens[0]
