@@ -179,7 +179,34 @@ line per phase, then one JSON line per kernel summary, then the result:
                peak memory and launches, and which LZF decoder ran (the
                native one must: no payload decoded in Python). Fails on any
                ERROR log record or invalid row.
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+9. ``ddp_path`` data parallelism, on `cli_path`'s logs and caches: a
+               full-width step at B=16 in float32 and in bf16 on 2 spawned
+               ranks (NCCL over two cards; on one card gloo with CUDA
+               tensors) against 1 rank on the global batch (float32 terms
+               within 1e-3 x max(1, |1 rank|), bf16 within 2e-2,
+               agent_box_loss also 1e-2 relative; where the detection
+               assignment differs on some rows, its two terms held to the
+               1-rank assignment and each flip shown to be a near-tie; BN
+               1e-4 in float32, 2e-2 in bf16; parameters the same bits on
+               both ranks; 1 LAP launch a rank); `Trainer.fit` under DDP at
+               world 1 on NCCL against the plain trainer (ms a step, plain,
+               DDP, DDP, plain) with the gradient all-reduce's bytes and
+               its bound over NVLink and PCIe for four cards; the runner
+               with the float32 agent over a device list (every card, or
+               [cuda:0, cuda:0] on one) against one device (rows within
+               1e-4, 1 splat + 2 stem + 12 conv3x3 a chunk) and
+               `lidar_bev` over the list (equal to one launch);
+               `run_pdm_score --mesh-devices -1` (its CSV within 1e-4 of
+               `cli_path`'s); `entry.dryrun_multichip(n)` over the n cards
+               (golden loss, 7/12). The phase's launches include the
+               spawned ranks'.
+10. a ``chip_smoke wall`` line (the script's seconds), a
+               ``{"kernels": [...]}`` line, then ``{"ok": true, "device":
+               {...}}`` last.
+
+``python3 chip_smoke.py --only ddp_path`` runs phases 1, 2, 8 and 9 and
+the last line only: on a machine of several cards, the check of the
+data-parallel paths across them.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -187,6 +214,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -1017,10 +1045,12 @@ def pdm_road_cache(token: str, seed: int):
 def golden_scenarios():
     """The two scenarios of `tests/test_golden_scores.py` as a batch of two
     scenes in `score_proposals`' argument order (numpy): (a) a clean 10 m/s
-    drive tailgating a 9 m/s lead car 12 m ahead, both proposals; (b) 10 and
-    2 m/s towards a parked car 20 m ahead. A straight 16 m corridor (a
-    roadblock and an on-route lane), 4 track slots, 26 local maps."""
+    drive tailgating a 9 m/s lead car 12 m ahead, both proposals
+    (`entry.golden_tailgating_scenes`); (b) 10 and 2 m/s towards a parked
+    car 20 m ahead. A straight 16 m corridor (a roadblock and an on-route
+    lane), 4 track slots, 26 local maps."""
     from diffusiondrive_torch.common.enums import MapLayer, StateIndex
+    from diffusiondrive_torch.entry import golden_tailgating_scenes
 
     def straight(v):
         st = np.zeros((41, StateIndex.size()), np.float32)
@@ -1046,8 +1076,9 @@ def golden_scenarios():
                 np.array([MapLayer.ROADBLOCK, MapLayer.LANE, 0, 0], np.int32), np.array([False, True, False, False]),
                 np.stack([x, np.zeros_like(x)], -1).astype(np.float32))
 
-    scenes = [scene((12.0, 0.0, 0.0, 4.5, 2.0), (9.0, 0.0), (10.0, 10.0)),
-              scene((20.0, 0.0, 0.0, 4.5, 2.0), (0.0, 0.0), (10.0, 2.0))]
+    proposals, (_, *ctx) = golden_tailgating_scenes(1)
+    tailgating = (proposals[0], *(a[0] for a in ctx))
+    scenes = [tailgating, scene((20.0, 0.0, 0.0, 4.5, 2.0), (0.0, 0.0), (10.0, 2.0))]
     return [np.stack(a) for a in zip(*scenes)]
 
 
@@ -1621,7 +1652,7 @@ def write_cli_logs(root: Path) -> tuple:
     return logs_dir, blobs_dir
 
 
-def phase_cli_path(dev, card: str) -> dict:
+def phase_cli_path(dev, card: str, root: Path) -> dict:
     """Every ported entry point, in process, with `--device` left at its
     default (the card), on two synthetic logs whose sensor blobs lie on
     disk (`write_cli_logs`) and the city map of `metric_caching_path`
@@ -1636,7 +1667,8 @@ def phase_cli_path(dev, card: str) -> dict:
     on any ERROR record, an invalid row, a non-finite loss or prediction,
     a launch count off (1 LAP a train step; 1 splat, 2 stem, 12 conv3x3 a
     scoring batch and a B=1 forward), a rewritten feature cache, or an
-    LZF payload decoded in Python. Returns the launches of the whole phase."""
+    LZF payload decoded in Python. The logs, caches and CSVs stay under
+    `root` for `ddp_path`. Returns the launches of the whole phase."""
     import csv
     import logging
     import pickle
@@ -1656,122 +1688,121 @@ def phase_cli_path(dev, card: str) -> dict:
     errors = Errors()
     logging.getLogger().addHandler(errors)
     walls, peaks, launches = {}, {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        logs_dir, blobs_dir = write_cli_logs(tmp / "data")
-        city_map().save(tmp / "maps" / "synthetic.ddmap.pkl")
-        split = tmp / "split.yaml"
-        split.write_text("frame_interval: 1\n")
-        for name, *_ in CLI_LOGS:
-            (tmp / f"split_{name}.yaml").write_text(f"frame_interval: 1\nlog_names: [{name}]\n")
-        setup_s = time.perf_counter() - t0
+    tmp = root
+    t0 = time.perf_counter()
+    logs_dir, blobs_dir = write_cli_logs(tmp / "data")
+    city_map().save(tmp / "maps" / "synthetic.ddmap.pkl")
+    split = tmp / "split.yaml"
+    split.write_text("frame_interval: 1\n")
+    for name, *_ in CLI_LOGS:
+        (tmp / f"split_{name}.yaml").write_text(f"frame_interval: 1\nlog_names: [{name}]\n")
+    setup_s = time.perf_counter() - t0
 
-        # the sensor load of one scene of each log, by part
-        cams = [blobs_dir / "cams" / f"{c}.jpg" for c in ("cam_l0", "cam_f0", "cam_r0")]
-        load = {}
-        for label, fn in (("jpeg_decode_ms", lambda: [_load_image(c) for c in cams]),
-                          ("pcd_binary_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_binary.pcd")),
-                          ("pcd_binary_compressed_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_compressed.pcd"))):
-            fn()
-            t = time.perf_counter()
-            for _ in range(3):
-                fn()
-            load[label] = (time.perf_counter() - t) / 3 * 1e3
-        raw = (blobs_dir / "lidar" / "cli_compressed.pcd").read_bytes()
-        body = raw[raw.find(b"\n", raw.find(b"DATA")) + 1:]
-        comp, size = np.frombuffer(body[:8], "<u4")
+    # the sensor load of one scene of each log, by part
+    cams = [blobs_dir / "cams" / f"{c}.jpg" for c in ("cam_l0", "cam_f0", "cam_r0")]
+    load = {}
+    for label, fn in (("jpeg_decode_ms", lambda: [_load_image(c) for c in cams]),
+                      ("pcd_binary_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_binary.pcd")),
+                      ("pcd_binary_compressed_ms", lambda: load_pcd(blobs_dir / "lidar" / "cli_compressed.pcd"))):
+        fn()
         t = time.perf_counter()
-        plain = _lzf_decompress(body[8:8 + int(comp)], int(size))
-        load["lzf_ms"] = (time.perf_counter() - t) * 1e3
-        # the loaders decode LZF natively whenever the library loads (else in Python, with a warning)
-        if get_native() is None or len(plain) != CLI_POINTS * 24:
-            raise AssertionError("cli_path: the native LZF decoder did not build or did not decode")
-        load["lzf_mb"] = len(plain) / 1e6
-        log("cli_path setup", card=card, logs=[m[0] for m in CLI_LOGS], scenes=len(CLI_LOGS) * CLI_SCENES_PER_LOG,
-            points=CLI_POINTS, camera="1920x1080 JPEG", setup_s=setup_s, sensor_load_per_scene=load,
-            jpeg_bytes=sum(c.stat().st_size for c in cams) // 3)
+        for _ in range(3):
+            fn()
+        load[label] = (time.perf_counter() - t) / 3 * 1e3
+    raw = (blobs_dir / "lidar" / "cli_compressed.pcd").read_bytes()
+    body = raw[raw.find(b"\n", raw.find(b"DATA")) + 1:]
+    comp, size = np.frombuffer(body[:8], "<u4")
+    t = time.perf_counter()
+    plain = _lzf_decompress(body[8:8 + int(comp)], int(size))
+    load["lzf_ms"] = (time.perf_counter() - t) * 1e3
+    # the loaders decode LZF natively whenever the library loads (else in Python, with a warning)
+    if get_native() is None or len(plain) != CLI_POINTS * 24:
+        raise AssertionError("cli_path: the native LZF decoder did not build or did not decode")
+    load["lzf_mb"] = len(plain) / 1e6
+    log("cli_path setup", card=card, logs=[m[0] for m in CLI_LOGS], scenes=len(CLI_LOGS) * CLI_SCENES_PER_LOG,
+        points=CLI_POINTS, camera="1920x1080 JPEG", setup_s=setup_s, sensor_load_per_scene=load,
+        jpeg_bytes=sum(c.stat().st_size for c in cams) // 3)
 
-        def run(label, main, *argv):
-            """One CLI in process: wall s, peak memory, launches."""
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for f in fns.values():
-                f.launches = 0
-            t = time.perf_counter()
-            out = main(list(argv))
-            torch.cuda.synchronize()
-            walls[label] = time.perf_counter() - t
-            peaks[label] = torch.cuda.max_memory_allocated() / 1e9
-            launches[label] = {k: f.launches for k, f in fns.items() if f.launches}
-            if errors.records:
-                raise AssertionError(f"cli_path: {label} logged errors: {errors.records[:3]}")
-            return out
+    def run(label, main, *argv):
+        """One CLI in process: wall s, peak memory, launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in fns.values():
+            f.launches = 0
+        t = time.perf_counter()
+        out = main(list(argv))
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t
+        peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+        launches[label] = {k: f.launches for k, f in fns.items() if f.launches}
+        if errors.records:
+            raise AssertionError(f"cli_path: {label} logged errors: {errors.records[:3]}")
+        return out
 
-        scene_types.NUPLAN_MAPS_ROOT = str(tmp / "maps")   # as the environment variable would set it
-        data = [f"navsim_log_path={logs_dir}", f"sensor_blobs_path={blobs_dir}", f"split={split}"]
-        cache = tmp / "training_cache"
-        try:
-            run("run_dataset_caching", run_dataset_caching.main, "--config", "default_dataset_caching", *data,
-                f"cache_path={cache}", f"output_dir={tmp / 'out_dataset'}")
-            files = sorted(cache.glob("*/*/*.gz"))
-            if len(files) != 2 * len(CLI_LOGS) * CLI_SCENES_PER_LOG:
-                raise AssertionError(f"cli_path: {len(files)} feature/target files")
-            stamps = [f.stat().st_mtime_ns for f in files]
-            out = tmp / "out_training"
-            run("run_training", run_training.main, "--config", "default_training", *data, f"cache_path={cache}",
-                f"output_dir={out}", "epochs=1", f"batch_size={CLI_TRAIN_BATCH}")
-            train_rows = [json.loads(r) for r in (out / "metrics.jsonl").read_text().splitlines()]
-            steps = len(CLI_LOGS) * CLI_SCENES_PER_LOG // CLI_TRAIN_BATCH
-            if len(train_rows) != steps or not all(np.isfinite(r["loss"]) for r in train_rows):
-                raise AssertionError(f"cli_path: training rows {train_rows}")
-            if not (out / "epoch_0000" / "state.pt").exists() or launches["run_training"].get("lap") != steps:
-                raise AssertionError(f"cli_path: run_training launches {launches['run_training']}, or no checkpoint")
-            if [f.stat().st_mtime_ns for f in files] != stamps:
-                raise AssertionError("cli_path: run_training rewrote the feature cache")
-            mc = tmp / "metric_cache"
-            run("run_metric_caching", run_metric_caching.main, "--config", "default_metric_caching", data[0], data[2],
-                f"metric_cache_path={mc}", f"output_dir={tmp / 'out_mc'}", "worker.max_workers=1")
-            scores = {}
-            for label, agent, batch in (("run_pdm_score", ["agent=diffusiondrive_agent",
-                                                           "agent.preprocess_on_device=true"], 32),
-                                        ("run_pdm_score cv", [], 16)):
-                csv_path = run(label, run_pdm_score.main, "--config", "default_evaluation", *agent, *data,
-                               f"metric_cache_path={mc}", f"output_dir={tmp / label.replace(' ', '_')}",
-                               f"batch_size={batch}")
-                with open(csv_path, newline="") as fp:
-                    scores[label] = list(csv.reader(fp))
-                if len(scores[label]) != 18 or not all(r[2] == "True" for r in scores[label][1:]):
-                    raise AssertionError(f"cli_path: {label} rows {scores[label]}")
-            if launches["run_pdm_score"] != {"splat": 1, "stem": 2, "conv3x3": 12}:
-                raise AssertionError(f"cli_path: run_pdm_score launches {launches['run_pdm_score']}")
-            subs = []
-            for name, *_ in CLI_LOGS:
-                subs.append(run(f"run_create_submission_pickle cv {name}", run_create_submission_pickle.main,
-                                "--config", "default_submission", "agent=constant_velocity_agent", *data[:2],
-                                f"split={tmp / f'split_{name}.yaml'}", f"output_dir={tmp / f'sub_{name}'}", *CLI_TEAM))
-            run("run_merge_submission_pickles", run_merge_submission_pickles.main, *map(str, subs),
-                "--output", str(tmp / "merged.pkl"))
-            csv_path = run("run_pdm_score_from_submission", run_pdm_score_from_submission.main, "--submission",
-                           str(tmp / "merged.pkl"), "--metric-cache-path", str(mc), "--output-dir",
-                           str(tmp / "out_from_sub"), "--batch-size", "16")
+    scene_types.NUPLAN_MAPS_ROOT = str(tmp / "maps")   # as the environment variable would set it
+    data = [f"navsim_log_path={logs_dir}", f"sensor_blobs_path={blobs_dir}", f"split={split}"]
+    cache = tmp / "training_cache"
+    try:
+        run("run_dataset_caching", run_dataset_caching.main, "--config", "default_dataset_caching", *data,
+            f"cache_path={cache}", f"output_dir={tmp / 'out_dataset'}")
+        files = sorted(cache.glob("*/*/*.gz"))
+        if len(files) != 2 * len(CLI_LOGS) * CLI_SCENES_PER_LOG:
+            raise AssertionError(f"cli_path: {len(files)} feature/target files")
+        stamps = [f.stat().st_mtime_ns for f in files]
+        out = tmp / "out_training"
+        run("run_training", run_training.main, "--config", "default_training", *data, f"cache_path={cache}",
+            f"output_dir={out}", "epochs=1", f"batch_size={CLI_TRAIN_BATCH}")
+        train_rows = [json.loads(r) for r in (out / "metrics.jsonl").read_text().splitlines()]
+        steps = len(CLI_LOGS) * CLI_SCENES_PER_LOG // CLI_TRAIN_BATCH
+        if len(train_rows) != steps or not all(np.isfinite(r["loss"]) for r in train_rows):
+            raise AssertionError(f"cli_path: training rows {train_rows}")
+        if not (out / "epoch_0000" / "state.pt").exists() or launches["run_training"].get("lap") != steps:
+            raise AssertionError(f"cli_path: run_training launches {launches['run_training']}, or no checkpoint")
+        if [f.stat().st_mtime_ns for f in files] != stamps:
+            raise AssertionError("cli_path: run_training rewrote the feature cache")
+        mc = tmp / "metric_cache"
+        run("run_metric_caching", run_metric_caching.main, "--config", "default_metric_caching", data[0], data[2],
+            f"metric_cache_path={mc}", f"output_dir={tmp / 'out_mc'}", "worker.max_workers=1")
+        scores = {}
+        for label, agent, batch in (("run_pdm_score", ["agent=diffusiondrive_agent",
+                                                       "agent.preprocess_on_device=true"], 32),
+                                    ("run_pdm_score cv", [], 16)):
+            csv_path = run(label, run_pdm_score.main, "--config", "default_evaluation", *agent, *data,
+                           f"metric_cache_path={mc}", f"output_dir={tmp / label.replace(' ', '_')}",
+                           f"batch_size={batch}")
             with open(csv_path, newline="") as fp:
-                scores["run_pdm_score_from_submission"] = list(csv.reader(fp))
-            if scores["run_pdm_score_from_submission"] != scores["run_pdm_score cv"]:
-                raise AssertionError("cli_path: the submission-scored CSV is not run_pdm_score's")
-            sub = run("run_create_submission_pickle", run_create_submission_pickle.main, "--config",
-                      "default_submission", "agent=diffusiondrive_agent", "agent.preprocess_on_device=true", *data,
-                      f"output_dir={tmp / 'sub_agent'}", *CLI_TEAM)
-            with open(sub, "rb") as fp:
-                preds = pickle.load(fp)["predictions"][0]
-            n = len(CLI_LOGS) * CLI_SCENES_PER_LOG
-            if len(preds) != n or not all(np.isfinite(t.poses).all() for t in preds.values()):
-                raise AssertionError(f"cli_path: {len(preds)} agent predictions, or a non-finite one")
-            if launches["run_create_submission_pickle"] != {"splat": n, "stem": 2 * n, "conv3x3": 12 * n}:
-                raise AssertionError(f"cli_path: agent submission launches {launches['run_create_submission_pickle']}")
-        finally:
-            scene_types.NUPLAN_MAPS_ROOT = maps_root
-            logging.getLogger().removeHandler(errors)
+                scores[label] = list(csv.reader(fp))
+            if len(scores[label]) != 18 or not all(r[2] == "True" for r in scores[label][1:]):
+                raise AssertionError(f"cli_path: {label} rows {scores[label]}")
+        if launches["run_pdm_score"] != {"splat": 1, "stem": 2, "conv3x3": 12}:
+            raise AssertionError(f"cli_path: run_pdm_score launches {launches['run_pdm_score']}")
+        subs = []
+        for name, *_ in CLI_LOGS:
+            subs.append(run(f"run_create_submission_pickle cv {name}", run_create_submission_pickle.main,
+                            "--config", "default_submission", "agent=constant_velocity_agent", *data[:2],
+                            f"split={tmp / f'split_{name}.yaml'}", f"output_dir={tmp / f'sub_{name}'}", *CLI_TEAM))
+        run("run_merge_submission_pickles", run_merge_submission_pickles.main, *map(str, subs),
+            "--output", str(tmp / "merged.pkl"))
+        csv_path = run("run_pdm_score_from_submission", run_pdm_score_from_submission.main, "--submission",
+                       str(tmp / "merged.pkl"), "--metric-cache-path", str(mc), "--output-dir",
+                       str(tmp / "out_from_sub"), "--batch-size", "16")
+        with open(csv_path, newline="") as fp:
+            scores["run_pdm_score_from_submission"] = list(csv.reader(fp))
+        if scores["run_pdm_score_from_submission"] != scores["run_pdm_score cv"]:
+            raise AssertionError("cli_path: the submission-scored CSV is not run_pdm_score's")
+        sub = run("run_create_submission_pickle", run_create_submission_pickle.main, "--config",
+                  "default_submission", "agent=diffusiondrive_agent", "agent.preprocess_on_device=true", *data,
+                  f"output_dir={tmp / 'sub_agent'}", *CLI_TEAM)
+        with open(sub, "rb") as fp:
+            preds = pickle.load(fp)["predictions"][0]
+        n = len(CLI_LOGS) * CLI_SCENES_PER_LOG
+        if len(preds) != n or not all(np.isfinite(t.poses).all() for t in preds.values()):
+            raise AssertionError(f"cli_path: {len(preds)} agent predictions, or a non-finite one")
+        if launches["run_create_submission_pickle"] != {"splat": n, "stem": 2 * n, "conv3x3": 12 * n}:
+            raise AssertionError(f"cli_path: agent submission launches {launches['run_create_submission_pickle']}")
+    finally:
+        scene_types.NUPLAN_MAPS_ROOT = maps_root
+        logging.getLogger().removeHandler(errors)
     total = {k: sum(c.get(k, 0) for c in launches.values())
              for k in ("lap", "splat", "stem", "conv3x3", "attention_fwd", "attention_bwd")}
     log("cli_path runs", card=card, wall_s=walls, phase_s=sum(walls.values()), peak_mem_gb=peaks,
@@ -1780,6 +1811,484 @@ def phase_cli_path(dev, card: str) -> dict:
         valid_rows=len(scores["run_pdm_score"]) - 2, submission_csv_equal=True, lzf_decoder="native")
     log("cli_path launches", **total)
     return total
+
+
+DDP_B = 16                 # global batch of the full-width data-parallel step and fits
+DDP_FIT_STEPS = 3          # steps an epoch of the timed fits (2 epochs: the second is timed)
+DDP_SCENES = 8             # scenes of the runner over [cuda:0, cuda:0] (one batch: 2 chunks of 4)
+DDP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DDP_LOSS_TOL = {"f32": 1e-3, "bf16": TOL[torch.bfloat16]}  # PERF.md §2's train-step and bf16 gates, x max(1, |1 rank|)
+DDP_STATS_TOL = {"f32": 1e-4, "bf16": TOL[torch.bfloat16]}
+DDP_BOX_REL = 1e-2         # JAX's tier for agent_box_loss (Hungarian near-ties), float32
+ASSIGNED_TERMS = ("agent_class_loss", "agent_box_loss")   # the terms the detection assignment picks
+RECOMPUTE_REL = 1e-4       # a run's assigned terms recomputed in float64 from its predictions and assignment
+NVLINK_BYTES_PER_S = 450e9   # H100 SXM NVLink 4, one direction (900 GB/s both)
+PCIE_BYTES_PER_S = 64e9      # PCIe Gen5 x16, one direction
+
+
+def _ddp_batch(model, cfg, dev) -> dict:
+    """`DDP_B` seeded training samples with the agent targets placed at
+    `model`'s own train-forward predictions for the trainer's step-0 draws
+    (dropout off), so the detection assignment is unique."""
+    from diffusiondrive_torch.entry import example_training_sample, place_targets_at_predictions
+    from diffusiondrive_torch.training.dataset import collate
+    from diffusiondrive_torch.training.train import OptimizerConfig
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    rng = np.random.default_rng(21)
+    batch = collate([example_training_sample(cfg, rng) for _ in range(DDP_B)])
+    probe = copy.deepcopy(model).train()
+    gen = Trainer(probe, cfg, OptimizerConfig(), seed=0).step_generator(0)
+    timesteps, noise = probe.trajectory_head.train_draws(DDP_B, gen)
+    with torch.no_grad():
+        pred = probe(*(torch.from_numpy(batch[k]).to(dev) for k in ("camera_feature", "lidar_feature",
+                                                                     "status_feature")),
+                     timesteps=timesteps, diffusion_noise=noise)["agent_states"].float().cpu().numpy()
+    return place_targets_at_predictions(batch, pred, rng)
+
+
+@contextlib.contextmanager
+def _detection_record():
+    """Within: the train step's detection loss keeps what its assignment
+    saw in the yielded dict (numpy): the predicted boxes ("states") and
+    logits, the LAP's costs and its assignment ("cols")."""
+    from diffusiondrive_torch.training import losses
+
+    record = {}
+    real_loss, real_lap = losses.agent_detection_loss, losses.batched_linear_sum_assignment
+
+    def loss(targets, predictions, config):
+        record["states"] = predictions["agent_states"].detach().double().cpu().numpy()
+        record["logits"] = predictions["agent_labels"].detach().double().cpu().numpy()
+        return real_loss(targets, predictions, config)
+
+    def lap(cost):
+        cols = real_lap(cost)
+        record["cost"], record["cols"] = cost.double().cpu().numpy(), cols.long().cpu().numpy()
+        return cols
+
+    losses.agent_detection_loss, losses.batched_linear_sum_assignment = loss, lap
+    try:
+        yield record
+    finally:
+        losses.agent_detection_loss, losses.batched_linear_sum_assignment = real_loss, real_lap
+
+
+def _assigned_terms(cfg, batch, record, cols=None) -> dict:
+    """agent_class_loss and agent_box_loss as the trainer reports them
+    (weighted, the box L1 over the global batch's count of valid agents),
+    in float64 from a step's recorded predictions under its assignment or
+    under `cols`."""
+    cols = record["cols"] if cols is None else cols
+    gt = batch["agent_states"].astype(np.float64)
+    valid = batch["agent_labels"].astype(np.float64)
+    gt_m = np.take_along_axis(gt, cols[..., None], 1)
+    valid_m = np.take_along_axis(valid, cols, 1)
+    l1 = np.abs(record["states"] - gt_m).sum(-1) * valid_m
+    x = record["logits"]
+    bce = np.maximum(x, 0.0) - x * valid_m + np.log1p(np.exp(-np.abs(x)))
+    return {"agent_class_loss": cfg.agent_class_weight * bce.mean(),
+            "agent_box_loss": cfg.agent_box_weight * l1.sum() / max(valid.sum(), 1.0)}
+
+
+def _ddp_one_step(cfg, batch, dev, dtype, model=None) -> dict:
+    """One `Trainer` step of `model` (default: the seeded full-width model
+    in `dtype`; dropout off) on this process's rows of `batch` (all of it
+    without a process group): the loss terms, the BN running statistics, a
+    digest of the parameters, the LAP launches of the step, its wall ms and
+    the detection loss's record (`_detection_record`)."""
+    import hashlib
+
+    from diffusiondrive_torch.entry import build_model
+    from diffusiondrive_torch.models.layers import disable_dropout
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+    from diffusiondrive_torch.parallel.distributed import rank, world_size
+    from diffusiondrive_torch.parallel.mesh import rank_rows
+    from diffusiondrive_torch.training.train import OptimizerConfig
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    model = model if model is not None else build_model(cfg, dtype=dtype, seed=0).to(dev)
+    disable_dropout(model)
+    trainer = Trainer(model, cfg, OptimizerConfig(), seed=0)
+    trainer.setup()
+    rows = rank_rows(len(batch["status_feature"]), rank(), world_size())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    lap0 = batched_linear_sum_assignment.launches
+    t0 = time.perf_counter()
+    with _detection_record() as record:
+        trainer.fit(lambda epoch: [{k: v[rows] for k, v in batch.items()}], 1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return {"metrics": trainer.last_train_metrics, "lap": batched_linear_sum_assignment.launches - lap0,
+            "stats": {k: b.detach().float().cpu() for k, b in model.named_buffers() if "running" in k},
+            "digest": digest.hexdigest(), "step_ms": step_ms, "rows": [rows.start, rows.stop],
+            "record": record,
+            "backend": torch.distributed.get_backend() if torch.distributed.is_initialized() else None}
+
+
+def _bf16_ulps(diff: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """|diff| in units of a bf16 ulp at |ref| (8 significant bits)."""
+    exp = np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+    return np.abs(diff) / 2.0 ** (exp - 7)
+
+
+def _check_assigned_terms(name, cfg, batch, one, got, rounding_ref=None) -> dict:
+    """The detection terms of the 2-rank step against the 1-rank step.
+
+    - Each run's reported terms are what its recorded predictions give
+      under its own assignment with the global count of valid agents
+      (`RECOMPUTE_REL`; the count local to a rank would give
+      `local_count_box`).
+    - Rows whose assignment of valid targets differs between the runs
+      (invalid targets cost the same for every prediction, so their order is
+      arbitrary and changes no term) are near-ties: the 1-rank cost of the
+      2-rank assignment exceeds the 1-rank optimum by no more than
+      ``2 n max |C2 - C1|``.
+    - Held to the 1-rank assignment, the 2-rank predictions' terms equal
+      the 1-rank terms within the step's gate; agent_box_loss in float32
+      also within JAX's tier.
+    - With `rounding_ref` (the float32 1-rank step's predicted boxes, for
+      the bf16 step): the 2-rank boxes are no further from the 1-rank boxes,
+      in mean |difference|, than twice the distance that bf16 rounding puts
+      between the 1-rank boxes and float32's. At a random initialisation
+      the agent head amplifies rounding (float32's 2-vs-1 boxes move by
+      ~500 float32 ulps), so two bf16 runs give boxes metres apart; the
+      targets sit 0.1 m from the 1-rank boxes, so the box term, an L1 of
+      residuals of that size, moves by as much as the boxes do. There the
+      held box term must stay within that move
+      (``box weight x sum |p2 - p1| / count``) and the boxes' own gate is
+      what holds it.
+    Returns the figures, for the log."""
+    rec1 = one["record"]
+    rec2 = {k: np.concatenate([g["record"][k] for g in got]) for k in rec1}
+    valid = batch["agent_labels"] > 0
+    count = max(float(valid.sum()), 1.0)
+    n = rec1["cols"].shape[-1]
+
+    def matched(rec):
+        return np.where(np.take_along_axis(valid, rec["cols"], 1), rec["cols"], -1)
+
+    flipped = np.flatnonzero((matched(rec1) != matched(rec2)).any(-1))
+    cost_err = float(np.abs(rec2["cost"] - rec1["cost"]).max())
+    gaps = []
+    for b in flipped:
+        c1 = rec1["cost"][b]
+        opt = c1[np.arange(n), rec1["cols"][b]].sum()
+        gap = float(c1[np.arange(n), rec2["cols"][b]].sum() - opt)
+        gaps.append(gap)
+        if not gap <= 2 * n * cost_err + 1e-5 * max(1.0, abs(opt)):
+            raise AssertionError(f"ddp_path {name}: row {b}'s 2-rank assignment costs {gap} over the 1-rank "
+                                 f"optimum, more than 2 n max|C2 - C1| = {2 * n * cost_err}: not a near-tie")
+    per_rank = [_assigned_terms(cfg, {k: v[slice(*g["rows"])] for k, v in batch.items()}, g["record"]) for g in got]
+    held = _assigned_terms(cfg, batch, rec2, cols=rec1["cols"])
+    diff = rec2["states"] - rec1["states"]
+    valid_m = np.take_along_axis(valid, rec1["cols"], 1)
+    gt_m = np.take_along_axis(batch["agent_states"].astype(np.float64), rec1["cols"][..., None], 1)
+    move = cfg.agent_box_weight * (np.abs(diff).sum(-1) * valid_m).sum() / count
+    ulps = _bf16_ulps(diff, rec1["states"])
+    out = {"flipped_rows": flipped.tolist(), "flip_cost_gaps": gaps, "max_abs_cost_err": cost_err,
+           "tie_bound": 2 * n * cost_err,
+           "box_pred_err_over_max1": float((np.abs(diff) / np.maximum(1.0, np.abs(rec1["states"]))).max()),
+           "box_pred_max_abs_diff": float(np.abs(diff).max()),
+           "box_pred_bf16_ulps": {"median": float(np.median(ulps)), "max": float(ulps.max())},
+           "box_pred_mean_abs_diff": float(np.abs(diff).mean()),
+           "box_pred_mean_abs_rounding": None if rounding_ref is None else float(
+               np.abs(rec1["states"] - rounding_ref).mean()),
+           "box_residual_mean_1rank": float((np.abs(rec1["states"] - gt_m).sum(-1) * valid_m).sum() / count / 5),
+           "held_to_1rank_assignment": held, "box_move_bound": float(move),
+           "global_count_box": got[0]["metrics"]["agent_box_loss"],
+           "local_count_box": float(np.mean([t["agent_box_loss"] for t in per_rank]))}
+    for label, run, rec in (("1 rank", one, rec1), ("2 ranks", got[0], rec2)):
+        mine = _assigned_terms(cfg, batch, rec)
+        for k in ASSIGNED_TERMS:
+            if not abs(mine[k] - run["metrics"][k]) <= RECOMPUTE_REL * max(1.0, abs(mine[k])):
+                raise AssertionError(f"ddp_path {name}: {k} {run['metrics'][k]} on {label}, {mine[k]} from its "
+                                     f"predictions and assignment with the global count ({out})")
+    if rounding_ref is not None and not out["box_pred_mean_abs_diff"] <= 2 * out["box_pred_mean_abs_rounding"]:
+        raise AssertionError(f"ddp_path {name}: predicted boxes further apart (2 ranks vs 1) than twice bf16's "
+                             f"rounding ({out})")
+    for k in ASSIGNED_TERMS:
+        want = one["metrics"][k]
+        limit = DDP_LOSS_TOL[name] * max(1.0, abs(want))
+        if k == "agent_box_loss":
+            limit = (max(limit, DDP_BOX_REL * abs(want)) if rounding_ref is None
+                     else move + 1e-5 * max(1.0, abs(want)))
+        if not abs(held[k] - want) <= limit:
+            raise AssertionError(f"ddp_path {name}: {k} {held[k]} from the 2-rank predictions under the 1-rank "
+                                 f"assignment, {want} on 1 rank (limit {limit}; {out})")
+    return out
+
+
+def _ddp_rank(rank_, world, dev, cfg, batch_paths) -> dict:
+    """A spawned rank of `ddp_path`: its float32 and bf16 steps on its rows
+    of the global batches (one file a type)."""
+    out = {}
+    for name, path in batch_paths.items():
+        with np.load(path) as f:
+            batch = {k: f[k] for k in f.files}
+        out[name] = _ddp_one_step(cfg, batch, dev, DDP_DTYPES[name])
+    return out
+
+
+def _timed_fits(base, cfg, batch, dev, distributed: bool) -> tuple:
+    """`Trainer.fit` of a copy of `base`, 2 epochs of `DDP_FIT_STEPS` steps
+    on `batch`; under a 1-rank NCCL group when `distributed`. Returns (the
+    second epoch's ms a step, the LAP launches of the fit)."""
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+    from diffusiondrive_torch.parallel.distributed import free_tcp_address, initialize_distributed
+    from diffusiondrive_torch.training.train import OptimizerConfig
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    if distributed:
+        initialize_distributed(free_tcp_address(), 1, 0, device=dev)
+    try:
+        counts = _Counts()
+        trainer = Trainer(copy.deepcopy(base), cfg, OptimizerConfig(), seed=0, callbacks=[counts])
+        if distributed and trainer.state is None:
+            trainer.setup()
+            if trainer.state.ddp is None:
+                raise AssertionError("ddp_path: the trainer did not wrap the model under a process group")
+        lap0 = batched_linear_sum_assignment.launches
+        trainer.fit(lambda epoch: [batch] * DDP_FIT_STEPS, 2)
+        return counts.wall[("train", 1)] / DDP_FIT_STEPS * 1e3, batched_linear_sum_assignment.launches - lap0
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def phase_ddp_path(dev, card: str, cli_root: Path) -> dict:
+    """Data parallelism on the card (`parallel/`, DDP in `training/trainer.py`,
+    device lists in the agent, `batched_pdm_score` and the runner):
+
+    (a) one bf16 train step at full width on a global batch of `DDP_B`: 2
+    spawned ranks (NCCL over 2 cards where the machine has them; on one
+    card gloo with CUDA tensors, since NCCL refuses two ranks on one card)
+    against 1 rank on the whole batch in this process (the float32 step
+    too): every loss term within the bf16 gate x max(1, |1 rank|)
+    (agent_box_loss also within JAX's 1e-2 tier); where the detection
+    assignment of some rows differs, the two assigned terms are held to the
+    1-rank assignment instead and the flips to near-ties
+    (`_check_assigned_terms`); the BN running statistics within the bf16
+    gate, the parameters the same bits on both ranks, 1 LAP launch a rank;
+    (b) `Trainer.fit` at B=`DDP_B` under a 1-rank NCCL group (DDP) against
+    the plain `Trainer` (plain, DDP, DDP, plain): the second epoch's ms a
+    step; the gradient all-reduce's bytes a step and their bound over
+    NVLink and PCIe for four cards;
+    (c) `run_pdm_score_evaluation` with the float32 agent over a device
+    list (every card where the machine has two or more, else
+    [cuda:0, cuda:0]) against one device on `DDP_SCENES` scenes: rows within
+    1e-4, discrete sub-scores equal, 1 splat, 2 stem and 12 conv3x3
+    launches on each chunk; `lidar_bev` over the list equal to one launch;
+    (d) `run_pdm_score --mesh-devices -1` on `cli_path`'s logs and caches:
+    its CSV within 1e-4 of `cli_path`'s one-device CSV;
+    (e) `entry.dryrun_multichip(n)` over the n visible cards (one NCCL rank
+    on one card): the golden loss, 7/12.
+    Returns the phase's launches, the spawned ranks' included."""
+    import csv
+
+    from diffusiondrive_torch.common.dataloader import MetricCacheLoader
+    from diffusiondrive_torch.entry import build_model, dryrun_multichip, example_agent_input
+    from diffusiondrive_torch.evaluate.runner import SUB_SCORE_COLUMNS, run_pdm_score_evaluation
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.models.layers import disable_dropout
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.ops.preprocessing import lidar_bev
+    from diffusiondrive_torch.parallel.distributed import launch
+    from diffusiondrive_torch.script import run_pdm_score
+
+    RecordingAgent, Loader, Errors = _runner_helpers()
+    fns = {"splat": histogram2d, **_launch_counters()}
+    for f in fns.values():
+        f.launches = 0
+    phase_t0 = time.perf_counter()
+    cfg = TransfuserConfig()
+    cards = torch.cuda.device_count()
+
+    # (a) 2 ranks against 1 rank on the global batch, float32 and bf16
+    models = {name: build_model(cfg, dtype=dt, seed=0).to(dev) for name, dt in DDP_DTYPES.items()}
+    for m in models.values():
+        disable_dropout(m)
+    batches = {name: _ddp_batch(m, cfg, dev) for name, m in models.items()}
+    base = copy.deepcopy(models["bf16"])
+    one = {name: _ddp_one_step(cfg, b, dev, DDP_DTYPES[name], models.pop(name)) for name, b in batches.items()}
+    torch.cuda.empty_cache()
+    two_device, backend = ("cuda", "nccl") if cards >= 2 else (str(dev), "gloo")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        paths = {}
+        for name, b in batches.items():
+            paths[name] = str(Path(tmp) / f"batch_{name}.npz")
+            np.savez(paths[name], **b)
+        t0 = time.perf_counter()
+        ranks = launch(_ddp_rank, 2, args=(cfg, paths), device=two_device, backend=backend, timeout=600)
+        launch_s = time.perf_counter() - t0
+    lap_ranks = [sum(r[name]["lap"] for name in DDP_DTYPES) for r in ranks]
+    for name, want_one in one.items():
+        got = [r[name] for r in ranks]
+        if want_one["lap"] != 1 or [g["lap"] for g in got] != [1, 1]:
+            raise AssertionError(f"ddp_path {name}: LAP launches {[g['lap'] for g in got]} on the ranks, "
+                                 f"{want_one['lap']} on 1 rank; want 1 each")
+        if got[0]["digest"] != got[1]["digest"] or got[0]["metrics"] != got[1]["metrics"]:
+            raise AssertionError(f"ddp_path {name}: the ranks' parameters or loss terms differ: "
+                                 f"{[(g['digest'], g['metrics']) for g in got]}")
+        assignment = _check_assigned_terms(name, cfg, batches[name], want_one, got,
+                                           one["f32"]["record"]["states"] if name == "bf16" else None)
+        loss_err, gated = {}, {}
+        for k, want in want_one["metrics"].items():
+            err = abs(got[0]["metrics"][k] - want)
+            loss_err[k] = err / max(1.0, abs(want))
+            limit = DDP_LOSS_TOL[name] * max(1.0, abs(want))
+            if k in ASSIGNED_TERMS and assignment["flipped_rows"]:
+                # another assignment on some rows: `_check_assigned_terms` holds
+                # these terms to the 1-rank assignment and the flips to near-ties
+                limit = None
+            elif k == "agent_box_loss":
+                limit = max(limit, DDP_BOX_REL * abs(want))
+            gated[k] = limit is not None
+            if limit is not None and not err <= limit:
+                raise AssertionError(f"ddp_path {name}: {k} {got[0]['metrics'][k]} on 2 ranks, {want} on 1 "
+                                     f"(limit {limit})")
+        stats_err = max(((got[0]["stats"][k] - v).abs().max() / v.abs().max().clamp_min(1.0)).item()
+                        for k, v in want_one["stats"].items())
+        if not stats_err <= DDP_STATS_TOL[name]:
+            raise AssertionError(f"ddp_path {name}: BN running statistics {stats_err} apart (2 ranks vs 1)")
+        b = batches[name]
+        log(f"ddp_path step {name} 2-vs-1", card=card, cards=cards, backend=got[0]["backend"],
+            rank_device=two_device, global_batch=DDP_B, rank_rows=[g["rows"] for g in got],
+            loss_1rank=want_one["metrics"]["loss"], loss_2ranks=got[0]["metrics"]["loss"],
+            err_over_max1=loss_err, gated=gated, limit=DDP_LOSS_TOL[name], box_rel_limit=DDP_BOX_REL,
+            assigned_terms={k: [want_one["metrics"][k], got[0]["metrics"][k]] for k in ASSIGNED_TERMS},
+            assignment=assignment,
+            bn_stats_err=stats_err,
+            bn_stats_limit=DDP_STATS_TOL[name], params_equal_across_ranks=True, lap_per_rank=[1, 1],
+            step_ms_1rank=want_one["step_ms"], step_ms_ranks=[g["step_ms"] for g in got],
+            valid_agents_per_rank=[float(b["agent_labels"][slice(*g["rows"])].sum()) for g in got],
+            note="correctness run, not a rate: the step_ms include the first step's setup")
+    log("ddp_path spawn", launch_s=launch_s, ranks=2, rank_device=two_device, backend=backend)
+
+    # (b) the DDP wrapper's cost at world 1 (NCCL) against the plain Trainer
+    tensors = batches["bf16"]
+    times = {"plain": [], "ddp": []}
+    fit_lap = 0
+    for mode in ("plain", "ddp", "ddp", "plain"):
+        ms, lap = _timed_fits(base, cfg, tensors, dev, mode == "ddp")
+        times[mode].append(ms)
+        fit_lap += lap
+        if lap != 2 * DDP_FIT_STEPS:
+            raise AssertionError(f"ddp_path: {mode} fit made {lap} LAP launches over {2 * DDP_FIT_STEPS} steps")
+    params = sum(p.numel() for p in base.parameters())
+    grad_bytes = 4 * params
+    ring = 2 * (4 - 1) / 4 * grad_bytes      # bytes each card sends in a ring all-reduce over 4 cards
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log("ddp_path fit bf16 world1", card=card, batch=DDP_B, steps_timed=DDP_FIT_STEPS, ms_per_step=med,
+        runs_ms=times, samples_per_s={k: DDP_B / v * 1e3 for k, v in med.items()},
+        ddp_over_plain=med["ddp"] / med["plain"], order="plain, ddp, ddp, plain", backend="nccl",
+        params=params, grad_allreduce_bytes_per_step=grad_bytes, ring_bytes_per_card_4cards=ring,
+        allreduce_bound_ms_4cards={"nvlink": ring / NVLINK_BYTES_PER_S * 1e3, "pcie_gen5": ring / PCIE_BYTES_PER_S * 1e3})
+    del base
+    torch.cuda.empty_cache()
+
+    # (c) the runner over a device list against one device
+    mesh = [torch.device("cuda", i) for i in range(cards)] if cards >= 2 else [dev, dev]
+    tokens = [f"ddp_{i:02d}" for i in range(DDP_SCENES)]
+    rows, runner_counts = {}, {}
+    errors = Errors()
+    import logging
+
+    logging.getLogger("diffusiondrive_torch.evaluate.runner").addHandler(errors)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_pdm_") as tmp:
+        for i, tok in enumerate(tokens):
+            pdm_road_cache(tok, seed=100 + i).save(Path(tmp) / "cache" / "chip_smoke_road" / tok / "metric_cache.npz")
+        inputs = {tok: example_agent_input(cfg, seed=100 + i) for i, tok in enumerate(tokens)}
+        agent = RecordingAgent(cfg, dtype=torch.float32, seed=0, preprocess_on_device=True, device=dev)
+        agent.trajectories = []
+        for name, devices in (("one", None), ("two", mesh)):
+            before = {k: f.launches for k, f in fns.items()}
+            rows[name] = run_pdm_score_evaluation(agent, Loader(inputs, tokens), MetricCacheLoader(Path(tmp) / "cache"),
+                                                  batch_size=DDP_SCENES, device=dev, mesh=devices)
+            torch.cuda.synchronize()
+            runner_counts[name] = {k: f.launches - before[k] for k, f in fns.items() if f.launches - before[k]}
+    logging.getLogger("diffusiondrive_torch.evaluate.runner").removeHandler(errors)
+    if errors.records:
+        raise AssertionError(f"ddp_path: the runner logged errors {errors.records[:3]}")
+    k = len(mesh)
+    if runner_counts["one"] != {"splat": 1, "stem": 2, "conv3x3": 12} or \
+            runner_counts["two"] != {"splat": k, "stem": 2 * k, "conv3x3": 12 * k}:
+        raise AssertionError(f"ddp_path: runner launches {runner_counts}; want 1 + 2 + 12 on each chunk")
+    row_err = 0.0
+    for a, b in zip(rows["two"], rows["one"]):
+        if a["token"] != b["token"] or not (a["valid"] and b["valid"]):
+            raise AssertionError(f"ddp_path: rows {a} / {b}")
+        for c in SUB_SCORE_COLUMNS:
+            row_err = max(row_err, abs(a[c] - b[c]))
+        for c in ("no_at_fault_collisions", "drivable_area_compliance", "time_to_collision_within_bound",
+                  "comfort", "driving_direction_compliance"):
+            if a[c] != b[c]:
+                raise AssertionError(f"ddp_path: {c} {a[c]} over two devices, {b[c]} on one")
+    traj_err = float(np.abs(agent.trajectories[1] - agent.trajectories[0]).max())
+    if row_err > 1e-4 or traj_err > MAIN_TOL:
+        raise AssertionError(f"ddp_path: runner rows {row_err}, trajectories {traj_err} apart")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    points = (torch.rand((DDP_SCENES, SPLAT_N, 3), generator=gen, device=dev) - 0.5) * 80.0
+    valid = torch.rand((DDP_SCENES, SPLAT_N), generator=gen, device=dev) < 0.9
+    before = histogram2d.launches
+    bev_one = lidar_bev(points, valid, cfg)
+    bev_mesh = lidar_bev(points, valid, cfg, mesh=mesh)
+    bev_launches = histogram2d.launches - before
+    if bev_launches != 1 + k or bev_mesh.device != dev or not torch.equal(bev_mesh, bev_one):
+        raise AssertionError(f"ddp_path: lidar_bev over {mesh} differs from one launch ({bev_launches} launches)")
+    log("ddp_path runner f32 over a device list", card=card, mesh=[str(d) for d in mesh], scenes=DDP_SCENES,
+        chunks=k, max_abs_row_err=row_err, max_abs_trajectory_err=traj_err, launches=runner_counts,
+        per_chunk={"splat": 1, "stem": 2, "conv3x3": 12}, lidar_bev_mesh_equal=True, lidar_bev_launches=bev_launches)
+
+    # (d) the CLI's --mesh-devices -1 on cli_path's logs and caches
+    (want_csv,) = sorted((cli_root / "run_pdm_score").glob("*.csv"))
+    data = [f"navsim_log_path={cli_root / 'data' / 'logs'}", f"sensor_blobs_path={cli_root / 'data' / 'blobs'}",
+            f"split={cli_root / 'split.yaml'}"]
+    before = {k: f.launches for k, f in fns.items()}
+    t0 = time.perf_counter()
+    got_csv = run_pdm_score.main(["--config", "default_evaluation", "agent=diffusiondrive_agent",
+                                  "agent.preprocess_on_device=true", *data,
+                                  f"metric_cache_path={cli_root / 'metric_cache'}",
+                                  f"output_dir={cli_root / 'run_pdm_score_mesh'}", "batch_size=32",
+                                  "--mesh-devices", "-1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = {k: f.launches - before[k] for k, f in fns.items() if f.launches - before[k]}
+    tables = []
+    for path in (got_csv, want_csv):
+        with open(path, newline="") as fp:
+            tables.append(list(csv.reader(fp)))
+    csv_err = 0.0
+    for g, w in zip(*tables):
+        if g[:3] != w[:3]:
+            raise AssertionError(f"ddp_path: --mesh-devices -1 CSV row {g} vs {w}")
+        for a, b in zip(g[3:], w[3:]):
+            if a != b:
+                csv_err = max(csv_err, abs(float(a) - float(b)))
+    if len(tables[0]) != len(tables[1]) or csv_err > 1e-4 or cli_counts != {"splat": cards, "stem": 2 * cards,
+                                                                            "conv3x3": 12 * cards}:
+        raise AssertionError(f"ddp_path: --mesh-devices -1 CSV {csv_err} apart, launches {cli_counts}")
+    log("ddp_path cli --mesh-devices -1", card=card, devices=cards, wall_s=cli_s, rows=len(tables[0]) - 2,
+        max_abs_csv_err=csv_err, launches=cli_counts)
+
+    # (e) the dry run on an NCCL rank a card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(cards)
+    dry_s = time.perf_counter() - t0
+    log(f"ddp_path dryrun_multichip({cards})", card=card, wall_s=dry_s, **{k: dry[k] for k in (
+        "backend", "loss", "eval_score", "lap_launches", "max_abs_trajectory_diff")},
+        golden_loss=dry["golden"]["loss"])
+
+    counts = {k: f.launches for k, f in fns.items()}
+    counts["lap"] += sum(lap_ranks) + sum(dry["lap_launches"])
+    log("ddp_path launches", phase_s=time.perf_counter() - phase_t0, spawned_rank_lap=sum(lap_ranks) + sum(
+        dry["lap_launches"]), **counts)
+    return counts
 
 
 LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
@@ -2162,6 +2671,14 @@ def _stage_sum(summary: dict, kernel: str) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["ddp_path"],
+                        help="run the device line, the build, cli_path and this phase only, and print no "
+                             "kernels line (ddp_path over every visible card: NCCL ranks a card, device "
+                             "lists of every card)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2173,14 +2690,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device().splitlines()[0]
     build_logs = phase_build()
+    if args.only == "ddp_path":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
+            phase_cli_path(dev, card, Path(cli_root))
+            phase_ddp_path(dev, card, Path(cli_root))
+        log("chip_smoke wall", total_s=time.perf_counter() - _T0)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     summary = phase_kernels(dev)
     summary.update(phase_attention(dev))
     summary.update(phase_conv3x3_train(dev))
     summary.update(phase_lap(dev, build_logs))
     counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev),
               "pdm_score_path": phase_pdm_score_path(dev, card),
-              "metric_caching_path": phase_metric_caching_path(dev, card), **phase_train_path(dev),
-              "cli_path": phase_cli_path(dev, card)}
+              "metric_caching_path": phase_metric_caching_path(dev, card), **phase_train_path(dev)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
+        counts["cli_path"] = phase_cli_path(dev, card, Path(cli_root))
+        counts["ddp_path"] = phase_ddp_path(dev, card, Path(cli_root))
 
     bf = torch.bfloat16
     kernels = []
@@ -2221,6 +2748,7 @@ def main() -> int:
     kernels[3]["rows"] = {f"b{k[1]}": {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                                                          "critical_steps", "ns_per_step")}
                           for k, v in summary.items() if k[0] == "lap"}
+    log("chip_smoke wall", total_s=time.perf_counter() - _T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,14 +3,14 @@
 An agent owns a model; `forward` consumes a batched numpy feature dict and
 returns a prediction dict of numpy arrays; the `compute_trajectory` template
 method (build features -> add batch dim -> no-grad forward -> Trajectory)
-is kept so PDMS harnesses run unchanged. The JAX package's `set_mesh` comes
-with the data-parallel slice.
+is kept so PDMS harnesses run unchanged. `set_mesh` takes a list of
+devices, the port's counterpart of the JAX package's mesh.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -68,3 +68,10 @@ class AbstractAgent(ABC):
 
     def get_training_callbacks(self, output_dir: Any = None) -> List[Any]:
         return []
+
+    def set_mesh(self, mesh: Optional[Sequence[Any]]) -> None:
+        """Split this agent's batched forward over a list of devices.
+
+        Default no-op: host-side agents (constant-velocity, human replay)
+        have no device program. Device agents run a replica of their model
+        on each device of the list on its rows of the batch."""

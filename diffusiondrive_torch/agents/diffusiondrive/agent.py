@@ -14,12 +14,20 @@ callbacks) is that of the JAX agent.
 The diffusion noise is drawn from a per-device generator re-seeded to 7 on
 each call: repeatable, as the JAX agent's fixed `PRNGKey(7)` is, but a
 different draw by construction.
+
+`set_mesh(devices)` is the counterpart of the JAX agent's: the forward's
+rows are split over the list, a replica of the model on each device (its
+weights copied once, and again only when they change) preprocesses and
+runs its rows, and the outputs are gathered on the first device. Without
+a list the agent's device is a list of one. The noise is drawn for the
+whole batch on the agent's device and split with the rows, so the rows
+equal the one-device forward's.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ from diffusiondrive_torch.entry import build_model
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 from diffusiondrive_torch.ops.preprocessing import lidar_bev, stitch_cameras
+from diffusiondrive_torch.parallel.mesh import canonical_device, device_scope, gather_rows, replicas, split_rows
 from diffusiondrive_torch.training.abstract_feature_target_builder import (
     AbstractFeatureBuilder,
     AbstractTargetBuilder,
@@ -73,6 +82,8 @@ class DiffusionDriveAgent(AbstractAgent):
         self.device = resolve_device(device)
         self.model: Optional[DiffusionDriveModel] = None
         self._generator = torch.Generator(device=self.device)
+        self._mesh: Optional[List[torch.device]] = None
+        self._replicas: Dict = {}
 
     @property
     def config(self) -> TransfuserConfig:
@@ -136,16 +147,34 @@ class DiffusionDriveAgent(AbstractAgent):
             return camera, lidar_bev(tensors["lidar_points"], tensors["lidar_valid"], cfg)
         return tensors["camera_feature"], tensors["lidar_feature"].float()
 
+    def set_mesh(self, mesh: Optional[Sequence[Union[str, torch.device]]]) -> None:
+        """Split the forward's rows over the devices of `mesh` (None or an
+        empty list: the agent's device alone). Callers pad the batch to a
+        multiple of its length (the runner does)."""
+        self._mesh = [canonical_device(d) for d in mesh] if mesh else None
+
     def predict(self, tensors: Mapping[str, torch.Tensor],
                 diffusion_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The eval forward on device tensors; outputs stay on the device.
         `diffusion_noise` (B, modes, poses, 2) fixes the trajectory head's
-        draw, else it comes from the generator re-seeded to 7."""
+        draw, else it is drawn for the whole batch from the generator
+        re-seeded to 7. The rows are split over the device list of
+        `set_mesh` (default: the agent's device): each device's replica
+        preprocesses and runs its rows, and the outputs are gathered on the
+        first device."""
         self.initialize()
+        mesh = self._mesh or [self.device]
+        if diffusion_noise is None:
+            diffusion_noise = self.model.trajectory_head.draw_noise(len(tensors["status_feature"]),
+                                                                    self._generator.manual_seed(_NOISE_SEED))
+        chunks = split_rows({**tensors, "noise": diffusion_noise}, mesh)
+        outs = []
         with torch.no_grad():
-            camera, lidar = self.preprocess(tensors)
-            return self.model(camera, lidar, tensors["status_feature"], diffusion_noise=diffusion_noise,
-                              generator=self._generator.manual_seed(_NOISE_SEED))
+            for dev, model, chunk in zip(mesh, replicas(self.model, mesh, self._replicas), chunks):
+                with device_scope(dev):
+                    camera, lidar = self.preprocess(chunk)
+                    outs.append(model(camera, lidar, chunk["status_feature"], diffusion_noise=chunk["noise"]))
+        return gather_rows(outs)
 
     def forward(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         out = self.predict(self.features_to_device(features))

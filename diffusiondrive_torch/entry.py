@@ -450,3 +450,179 @@ def output_distances(got: Dict[str, List[torch.Tensor]],
     for a module called more than once."""
     return {(f"{k}#{i}" if len(w) > 1 else k): (g - x).norm().item() / max(x.norm().item(), 1e-300)
             for k, w in want.items() if k in got for i, (g, x) in enumerate(zip(got[k], w))}
+
+
+# ----------------------------------------------------------------------------
+# the multi-device dry run (counterpart of `__graft_entry__.dryrun_multichip`)
+# ----------------------------------------------------------------------------
+
+DRYRUN_CONFIG = dict(image_architecture="resnet18", lidar_architecture="resnet18", camera_height=64,
+                     camera_width=256, lidar_resolution_height=64, lidar_resolution_width=64,
+                     img_vert_anchors=2, img_horz_anchors=8, lidar_vert_anchors=2, lidar_horz_anchors=2,
+                     bev_pixel_height=32, bev_pixel_width=64)
+# the JAX dry run's tiers: `agent_box_loss` owns the Hungarian near-tie
+# channel, "loss" inherits it weighted; every other term is a float reorder
+DRYRUN_REL = {"agent_box_loss": 1e-2, "loss": 1e-3}
+DRYRUN_REL_OTHER = 1e-4
+
+
+def dryrun_batch(batch_size: int) -> Dict[str, np.ndarray]:
+    """The JAX dry run's seeded batch (`__graft_entry__.py:112-124`) at
+    `DRYRUN_CONFIG`'s shapes."""
+    rng = np.random.default_rng(0)
+    cam_h, cam_w, lid = 64, 256, 64
+    return {
+        "camera_feature": rng.normal(size=(batch_size, cam_h, cam_w, 3)).astype(np.float32),
+        "lidar_feature": rng.normal(size=(batch_size, lid, lid, 1)).astype(np.float32),
+        "status_feature": rng.normal(size=(batch_size, 8)).astype(np.float32),
+        "trajectory": rng.normal(size=(batch_size, 8, 3)).astype(np.float32),
+        "agent_states": rng.normal(size=(batch_size, 30, 5)).astype(np.float32),
+        "agent_labels": (rng.uniform(size=(batch_size, 30)) > 0.5).astype(np.float32),
+        "bev_semantic_map": rng.integers(0, 7, size=(batch_size, lid // 2, lid)).astype(np.int32),
+    }
+
+
+def dryrun_train_step(config: TransfuserConfig, batch: Dict[str, np.ndarray], device: torch.device):
+    """One `Trainer` step (default `OptimizerConfig`) of the seeded model on
+    `batch`, dropout off; under a process group on this rank's rows of the
+    global `batch`. Returns (the step's loss terms as floats, the trainer)."""
+    from diffusiondrive_torch.parallel.distributed import rank, world_size
+    from diffusiondrive_torch.parallel.mesh import rank_rows
+    from diffusiondrive_torch.training.train import OptimizerConfig
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    model = build_model(config, seed=0).to(device)
+    disable_dropout(model)
+    rows = rank_rows(len(batch["status_feature"]), rank(), world_size())
+    trainer = Trainer(model, config, OptimizerConfig(), seed=0)
+    trainer.fit(lambda epoch: [{k: v[rows] for k, v in batch.items()}], 1)
+    return trainer.last_train_metrics, trainer
+
+
+def _dryrun_rank(rank_: int, world: int, device: torch.device, config: TransfuserConfig,
+                 batch: Dict[str, np.ndarray]) -> dict:
+    """A dry-run rank: the DDP step on its rows; its terms, its LAP launches
+    and a digest of its parameters after the step."""
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment
+
+    lap0 = batched_linear_sum_assignment.launches
+    metrics, trainer = dryrun_train_step(config, batch, device)
+    digest = sum(float(p.detach().double().sum()) for p in trainer.model.parameters())
+    return {"metrics": metrics, "lap_launches": batched_linear_sum_assignment.launches - lap0,
+            "param_digest": digest, "backend": torch.distributed.get_backend()}
+
+
+def golden_tailgating_scenes(scenes: int) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """`scenes` copies of the JAX dry run's golden scenario
+    (`__graft_entry__.py:199-241`): a clean 10 m/s drive tailgating a 9 m/s
+    lead car 12 m ahead, two identical proposals; it scores 7/12 (a TTC
+    infraction only). Returns (proposals, context) in
+    `pdm_score.simulate_and_score_on`'s order."""
+    from diffusiondrive_torch.common.enums import MapLayer
+
+    T, O, P, num_local = 41, 4, 4, 26
+    proposal = np.zeros((T, 11), np.float32)
+    proposal[:, 0] = 1.0 * np.arange(T)
+    proposal[:, 3] = 10.0
+    poses = np.full((num_local, O, 3), 1e6, np.float32)
+    poses[..., 2] = 0.0
+    extents = np.ones((O, 2), np.float32)
+    valid = np.zeros(O, bool)
+    is_stopped = np.ones(O, bool)
+    valid[0], extents[0], is_stopped[0] = True, (4.5, 2.0), False
+    for li in range(num_local):
+        poses[li, 0] = (12.0 + 9.0 * li * 0.2, 0.0, 0.0)
+    polys = np.full((P, 8, 2), 1e6, np.float32)
+    pvalid = np.zeros(P, bool)
+    layers = np.zeros(P, np.int32)
+    on_route = np.zeros(P, bool)
+    rect = np.array([[-20, -8], [220, -8], [220, 8], [-20, 8]], np.float32)
+    for i, (layer, route) in enumerate([(MapLayer.ROADBLOCK, False), (MapLayer.LANE, True)]):
+        polys[i, :4], polys[i, 4:] = rect, rect[3]
+        pvalid[i], layers[i], on_route[i] = True, layer, route
+    cl_x = np.linspace(-20, 220, 121, dtype=np.float32)
+    centerline = np.stack([cl_x, np.zeros_like(cl_x)], -1)
+
+    def tile(a):
+        return np.tile(a, (scenes,) + (1,) * a.ndim)
+
+    ctx = [proposal[0], poses, extents, valid, valid.copy(), np.zeros(O, bool), is_stopped, np.zeros(O, bool),
+           np.array([i // 2 for i in range(52)], np.int32), polys, pvalid, layers, on_route, centerline]
+    return tile(np.stack([proposal, proposal])), [tile(a) for a in ctx]
+
+
+def dryrun_multichip(n: int, device: Optional[Union[str, torch.device]] = None,
+                     init_method: Optional[str] = None, timeout: float = 900.0) -> dict:
+    """One data-parallel train step on `n` ranks and the evaluation path over
+    an `n`-device list, each held to a one-device golden; the port's
+    counterpart of `__graft_entry__.dryrun_multichip`.
+
+    1. The JAX dry run's tiny ResNet-18 config and seeded batch of ``2 n``
+       rows; the golden is one `Trainer` step of the seeded model on the
+       whole batch in this process, with no process group. Then `n` spawned
+       ranks (`parallel/distributed.py:launch`) each take the same step
+       under `DistributedDataParallel` on their rows; every loss term must
+       equal the golden within the JAX dry run's tiers and the ranks'
+       parameters must agree bit for bit. Dropout is off: the JAX dry run
+       draws one global mask, the port one mask a rank.
+    2. The golden model's planner forward split over the device list,
+       against the one-device forward (1e-4), and the golden tailgating
+       scenario simulated and scored over it: 7/12 on every scene.
+
+    On the card (the default) rank r takes card r over NCCL and the device
+    list is the first `n` cards; fewer cards raise. ``device="cpu"`` runs
+    gloo ranks and a list of `n` CPU devices. `init_method` is the ranks'
+    rendezvous (``file:///path``; default a free localhost port).
+    """
+    from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
+    from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+    from diffusiondrive_torch.evaluate.pdm_score import simulate_and_score_on
+    from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig
+    from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+    from diffusiondrive_torch.parallel.distributed import launch
+
+    dev0 = resolve_device(device)
+    if dev0.type == "cuda":
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(f"dryrun_multichip({n}) needs {n} cards, have {torch.cuda.device_count()}")
+        dev0, rank_dev = torch.device("cuda", 0), "cuda"
+        mesh = [torch.device("cuda", i) for i in range(n)]
+    else:
+        rank_dev, mesh = "cpu", [dev0] * n
+    config = TransfuserConfig(**DRYRUN_CONFIG)
+    batch = dryrun_batch(2 * n)
+
+    golden, trainer = dryrun_train_step(config, batch, dev0)
+    ranks = launch(_dryrun_rank, n, args=(config, batch), device=rank_dev, init_method=init_method,
+                   timeout=timeout, threads=torch.get_num_threads())
+    for r in ranks:
+        for key, want in golden.items():
+            got = r["metrics"][key]
+            rel = DRYRUN_REL.get(key, DRYRUN_REL_OTHER)
+            if not abs(got - want) <= rel * max(abs(want), 1e-6):
+                raise AssertionError(f"dryrun_multichip({n}): {key} {got!r} on {n} ranks, golden {want!r}")
+    if len({r["param_digest"] for r in ranks}) != 1:
+        raise AssertionError(f"dryrun_multichip({n}): parameters differ across ranks {ranks}")
+    loss = ranks[0]["metrics"]["loss"]
+    print(f"dryrun_multichip({n}): train ok, loss={loss:.4f} (== 1-device golden {golden['loss']:.4f})")
+
+    agent = DiffusionDriveAgent(config, dtype=torch.float32, device=dev0)
+    agent.model = trainer.model.eval()
+    features = {k: batch[k] for k in ("camera_feature", "lidar_feature", "status_feature")}
+    one = agent.forward(features)["trajectory"]
+    agent.set_mesh(mesh)
+    split = agent.forward(features)["trajectory"]
+    if split.shape != (2 * n, config.num_poses, 3) or not np.isfinite(split).all() \
+            or not np.allclose(split, one, rtol=0.0, atol=1e-4):
+        raise AssertionError(f"dryrun_multichip({n}): split forward {split} vs one device {one}")
+
+    proposals, ctx = golden_tailgating_scenes(n)
+    simulator = PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
+    scores = simulate_and_score_on(mesh, simulator, PDMScorerConfig(), proposals, ctx).score
+    if scores.shape != (n, 2) or np.abs(scores - 7.0 / 12.0).max() >= 1e-4:
+        raise AssertionError(f"dryrun_multichip({n}): eval scores {scores.ravel()} != 7/12")
+    score = float(scores.mean())
+    print(f"dryrun_multichip({n}): ok, loss={loss:.4f}, eval_score={score:.4f}")
+    return {"n": n, "backend": ranks[0]["backend"], "loss": loss, "golden": golden,
+            "terms": ranks[0]["metrics"], "lap_launches": [r["lap_launches"] for r in ranks],
+            "max_abs_trajectory_diff": float(np.abs(split - one).max()), "eval_score": score}

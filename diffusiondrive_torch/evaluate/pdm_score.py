@@ -12,13 +12,15 @@ scenes into (S, 2, 41, 11) + stacked context arrays on the host (float64
 interpolation, cast to float32 there), copies them to the device, runs the
 simulator and the scorer over the whole batch, and brings the results back
 as one stacked transfer. The device is the card unless `device="cpu"` is
-asked for (`device.resolve_device`); the JAX package's mesh argument waits
-for the data-parallel slice.
+asked for (`device.resolve_device`). With `mesh`, a list of devices (the
+JAX package's mesh), the scenes are padded to a multiple of its length by
+repeating the last one, each device simulates and scores its rows, each
+sends its results back in one transfer, and the padded rows are dropped.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from diffusiondrive_torch.device import resolve_device
 from diffusiondrive_torch.evaluate.metric_cache import MetricCache
 from diffusiondrive_torch.evaluate.scorer import PDMScorerConfig, ScorerOutput, score_proposals
 from diffusiondrive_torch.evaluate.simulator import PDMSimulator
+from diffusiondrive_torch.parallel.mesh import device_scope, pad_to_multiple
 
 
 def interpolate_poses(poses: np.ndarray, times: np.ndarray, query_times: np.ndarray) -> np.ndarray:
@@ -149,23 +152,43 @@ def simulate_and_score(simulator: PDMSimulator, scorer_config: PDMScorerConfig,
     return score_proposals(simulated, *ctx, simulator.proposal_sampling, scorer_config)
 
 
+def simulate_and_score_on(mesh: Sequence[torch.device], simulator: PDMSimulator,
+                          scorer_config: PDMScorerConfig, proposals: np.ndarray,
+                          ctx: List[np.ndarray]) -> ScorerOutput:
+    """The stacked host arrays of S scenes simulated and scored over a list
+    of devices: padded to a multiple of its length with the last scene,
+    rows ``[i * S' / W, (i + 1) * S' / W)`` on device i (all launched
+    before any result is read), one transfer back a device, the padding
+    dropped. Returns numpy (S, 2) arrays."""
+    num_real = len(proposals)
+    proposals, _ = pad_to_multiple(proposals, len(mesh))
+    ctx = [pad_to_multiple(x, len(mesh))[0] for x in ctx]
+    per = len(proposals) // len(mesh)
+    with torch.no_grad():
+        outs = []
+        for i, dev in enumerate(mesh):
+            rows = slice(i * per, (i + 1) * per)
+            with device_scope(dev):
+                p, c = scenes_to_device(proposals[rows], [x[rows] for x in ctx], torch.device(dev))
+                out = simulate_and_score(simulator, scorer_config, p, *c)
+                outs.append(torch.stack([v.to(torch.float32) for v in out]))
+        host = np.concatenate([o.cpu().numpy() for o in outs], axis=1)[:, :num_real]
+    return ScorerOutput(*host)
+
+
 def score_scenes(
     metric_caches: List[MetricCache],
     model_trajectories: List[Trajectory],
     simulator: PDMSimulator,
     scorer_config: PDMScorerConfig = PDMScorerConfig(),
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Sequence[torch.device]] = None,
 ) -> ScorerOutput:
     """Every sub-score of both proposals of S scenes, as numpy (S, 2) arrays
     (proposal 0 PDM-Closed, 1 the model's), brought to the host as one
-    stacked transfer."""
-    device = resolve_device(device)
+    stacked transfer from each device of `mesh` (default: `device` alone)."""
     proposals, ctx = stack_scenes(metric_caches, model_trajectories, simulator.proposal_sampling)
-    proposals, ctx = scenes_to_device(proposals, ctx, device)
-    with torch.no_grad():
-        out = simulate_and_score(simulator, scorer_config, proposals, *ctx)
-        host = torch.stack([v.to(torch.float32) for v in out]).cpu().numpy()
-    return ScorerOutput(*host)
+    return simulate_and_score_on(mesh or [resolve_device(device)], simulator, scorer_config, proposals, ctx)
 
 
 def pdm_score(
@@ -185,9 +208,11 @@ def batched_pdm_score(
     simulator: PDMSimulator,
     scorer_config: PDMScorerConfig = PDMScorerConfig(),
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Sequence[torch.device]] = None,
 ) -> List[PDMResults]:
-    """Score S scenes in one batch on `device` (the card unless "cpu")."""
-    out = score_scenes(metric_caches, model_trajectories, simulator, scorer_config, device)
+    """Score S scenes in one batch on `device` (the card unless "cpu"), or
+    split over the devices of `mesh` (padded rows dropped)."""
+    out = score_scenes(metric_caches, model_trajectories, simulator, scorer_config, device, mesh)
     pred = 1
     return [
         PDMResults(

@@ -68,15 +68,23 @@ def run_pdm_score_evaluation(
     num_hosts: int = 1,
     overlap_io: Optional[bool] = None,
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Sequence[torch.device]] = None,
 ) -> List[Dict[str, Any]]:
     """Evaluate the agent on all tokens; returns one score row per token.
 
     Simulation and scoring run on `device`: the card unless "cpu" is asked
     for (raises without a card otherwise). The agent runs where it was built.
+    With `mesh`, a list of devices (the JAX runner's mesh), the batch size
+    is rounded up to a multiple of its length, the agent's forward is split
+    over it (`set_mesh`) and so are simulate and score.
     """
     device = resolve_device(device)
     simulator = simulator or PDMSimulator(TrajectorySampling(num_poses=40, interval_length=0.1))
     agent.initialize()
+    if mesh:
+        # the batch must split evenly over the devices (padded rows below keep shapes)
+        batch_size = -(-batch_size // len(mesh)) * len(mesh)
+        agent.set_mesh(mesh)
 
     tokens = sorted(set(scene_loader.tokens) & set(metric_cache_loader.tokens))
     missing = len(set(scene_loader.tokens) - set(metric_cache_loader.tokens))
@@ -194,8 +202,10 @@ def run_pdm_score_evaluation(
                 while len(caches) < batch_size:
                     caches.append(caches[-1])
                     trajs.append(trajs[-1])
-                results = batched_pdm_score(caches, trajs, simulator, scorer_config, device)[:n_valid]
+                results = batched_pdm_score(caches, trajs, simulator, scorer_config, device, mesh)[:n_valid]
             except Exception:
+                if mesh:  # a device of the list failed: the run fails, it never goes on with fewer
+                    raise
                 logger.exception("Batched scoring failed; falling back to per-token.")
                 results = []
                 for (token, cache, _), traj in zip(valid_items, trajectories):

@@ -198,6 +198,29 @@ class DiffusionTrajectoryHead(nn.Module):
             points = poses_reg[..., :2].detach()
         return regs, clss
 
+    def train_draws(self, batch: int, generator: Optional[torch.Generator] = None,
+                    timesteps: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward's two draws for `batch` rows, (timesteps (B,),
+        noise (B, M, P, 2)), each drawn from `generator` on the anchors'
+        device unless given (timesteps first, as JAX draws). Data-parallel
+        training draws them for the global batch and gives each rank its
+        rows, as a JAX step sharded over a mesh draws them."""
+        if timesteps is None:
+            timesteps = torch.randint(0, self.config.diffusion_train_max_t, (batch,), generator=generator,
+                                      device=self.plan_anchor.device)
+        if noise is None:
+            noise = self.draw_noise(batch, generator)
+        return timesteps, noise
+
+    def draw_noise(self, batch: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, M, P, 2) standard normal noise for `batch` rows from `generator`
+        on the anchors' device, as either forward draws it. Data-parallel
+        callers draw it for the global batch and give each rank or device
+        its rows."""
+        return torch.randn((batch, *self.plan_anchor.shape), generator=generator, device=self.plan_anchor.device,
+                           dtype=torch.promote_types(self.plan_anchor.dtype, torch.float32))
+
     def forward_train(self, ego_query: torch.Tensor, agents_query: torch.Tensor,
                       bev_feature: torch.Tensor, timesteps: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
@@ -209,16 +232,11 @@ class DiffusionTrajectoryHead(nn.Module):
         (B, M, P, 2) fix the two draws; otherwise each is drawn from
         `generator` on the anchors' device (timesteps first, as JAX draws).
         """
-        cfg = self.config
         B = ego_query.shape[0]
         device = self.plan_anchor.device
         anchors = self.plan_anchor[None].expand(B, -1, -1, -1)
         normed = norm_odo(anchors)
-        if timesteps is None:
-            timesteps = torch.randint(0, cfg.diffusion_train_max_t, (B,), generator=generator,
-                                      device=device)
-        if noise is None:
-            noise = torch.randn(normed.shape, generator=generator, device=device, dtype=normed.dtype)
+        timesteps, noise = self.train_draws(B, generator, timesteps, noise)
         timesteps = timesteps.to(device)
         noisy = self.scheduler.add_noise(normed, noise.to(device=device, dtype=normed.dtype), timesteps)
         noisy_points = denorm_odo(noisy.clamp(-1.0, 1.0))
@@ -248,7 +266,7 @@ class DiffusionTrajectoryHead(nn.Module):
         device = self.plan_anchor.device
         img = norm_odo(self.plan_anchor[None].expand(B, -1, -1, -1))
         if noise is None:
-            noise = torch.randn(img.shape, generator=generator, device=device, dtype=img.dtype)
+            noise = self.draw_noise(B, generator)
         trunc_t = torch.full((B,), cfg.diffusion_test_trunc_t, dtype=torch.long, device=device)
         img = self.scheduler.add_noise(img, noise.to(device=device, dtype=img.dtype), trunc_t)
 

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusiondrive_torch.ops.conv_fused import bn_eval_affine
+from diffusiondrive_torch.parallel.distributed import all_reduce_sum, world_size
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -88,6 +89,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's own train-mode update uses the unbiased n/(n-1) variance, which
     after one step differs from Flax's by n/(n-1); it is not used here, and
     `num_batches_tracked` is not advanced (Flax has no counterpart).
+
+    Under a process group of more than one rank (data-parallel training)
+    the train-mode statistics are global, as a JAX batch sharded over a
+    mesh computes them: each rank's per-channel sums of x and x^2 and its
+    row count are summed over the group by a differentiable all-reduce,
+    and the mean and E[x^2] - E[x]^2 come from the global sums, so the
+    running statistics are the same on every rank.
     """
 
     MOMENTUM = 0.9  # Flax's convention: the weight of the old statistics
@@ -102,8 +110,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.to(stat_dtype(x))
         dims = (0, 2, 3)
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        if world_size() > 1:
+            mean, var = _global_moments(xf, dims)
+        else:
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -115,6 +126,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     def eval_affine(self):
         """Exact float32 (scale, bias) of this BatchNorm in eval mode."""
         return bn_eval_affine(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
+
+
+def _global_moments(xf: torch.Tensor, dims) -> tuple:
+    """(mean, biased variance) per channel over every rank's rows: one
+    differentiable all-reduce of (sum x, sum x^2, count)."""
+    C = xf.shape[1]
+    count = torch.full((1,), xf.numel() // C, dtype=xf.dtype, device=xf.device)
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+    n = sums[-1]
+    mean = sums[:C] / n
+    return mean, torch.clamp_min(sums[C:2 * C] / n - mean * mean, 0.0)
 
 
 class Dropout(nn.Module):

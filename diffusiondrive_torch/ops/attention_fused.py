@@ -165,9 +165,10 @@ def _attention_fwd(q, k, v, mask, pdrop):
     _check("fused_attention", q, (q, k, v), mask)
     out = _bthd_like(q)
     strides = _strides((q, k, v, out))
-    err = _lib().ddt_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   None if mask is None else mask.data_ptr(), out.data_ptr(),
-                                   strides, *_launch_args(q, mask, pdrop))
+    with torch.cuda.device(q.device):  # the launcher launches on the current device
+        err = _lib().ddt_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       None if mask is None else mask.data_ptr(), out.data_ptr(),
+                                       strides, *_launch_args(q, mask, pdrop))
     if err != 0:
         raise RuntimeError(f"fused_attention: CUDA kernel launch failed (cudaError {err})")
     fused_attention.launches += 1
@@ -188,10 +189,11 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = _bthd_like(q), _bthd_like(q), _bthd_like(q)
     stats = torch.empty((3, B * H * T), dtype=torch.float32, device=q.device)
     strides = _strides((q, k, v, do, dq, dk, dv))
-    err = _lib().ddt_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   None if mask is None else mask.data_ptr(), do.data_ptr(),
-                                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                                   strides, *_launch_args(q, mask, pdrop))
+    with torch.cuda.device(q.device):  # the launcher launches on the current device
+        err = _lib().ddt_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       None if mask is None else mask.data_ptr(), do.data_ptr(),
+                                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                                       strides, *_launch_args(q, mask, pdrop))
     if err != 0:
         raise RuntimeError(f"fused_attention_bwd: CUDA kernel launch failed (cudaError {err})")
     fused_attention_bwd.launches += 1

@@ -138,10 +138,11 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: t
         raise RuntimeError(f"fused_conv3x3: no kernel for device {x.device}")
     B, _, H, W = x.shape
     out = torch.empty_like(x, memory_format=torch.channels_last)
-    err = _lib()(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 None if residual is None else residual.data_ptr(), out.data_ptr(),
-                 B, H, W, int(x.dtype == torch.bfloat16), int(relu),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launcher launches on the current device
+        err = _lib()(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                     None if residual is None else residual.data_ptr(), out.data_ptr(),
+                     B, H, W, int(x.dtype == torch.bfloat16), int(relu),
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_conv3x3: CUDA kernel launch failed (cudaError {err})")
     fused_conv3x3.launches += 1

@@ -139,8 +139,9 @@ def batched_linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     if cost.device.type != "cuda":
         raise RuntimeError(f"batched_linear_sum_assignment: no kernel for device {cost.device}")
     out = torch.empty((B, n), dtype=torch.int32, device=cost.device)
-    err = _lib()(cost.data_ptr(), out.data_ptr(), B, n,
-                 torch.cuda.current_stream(cost.device).cuda_stream)
+    with torch.cuda.device(cost.device):  # the launcher launches on the current device
+        err = _lib()(cost.data_ptr(), out.data_ptr(), B, n,
+                     torch.cuda.current_stream(cost.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"batched_linear_sum_assignment: CUDA kernel launch failed (cudaError {err})")
     batched_linear_sum_assignment.launches += 1

@@ -118,8 +118,9 @@ def histogram2d(ix: torch.Tensor, iy: torch.Tensor, bins: int = 256) -> torch.Te
         raise ValueError(f"histogram2d: B={B}, N={N}, bins={bins} outside the kernel's range")
     plan = splat_plan(B, N, bins, torch.cuda.get_device_properties(ix.device).multi_processor_count)
     out = torch.empty((B, bins, bins), device=ix.device, dtype=torch.float32)
-    err = _lib()(ix.data_ptr(), iy.data_ptr(), out.data_ptr(), B, N, bins, plan.bands, plan.band_rows,
-                 plan.segment, plan.smem, torch.cuda.current_stream(ix.device).cuda_stream)
+    with torch.cuda.device(ix.device):  # the launcher launches on the current device
+        err = _lib()(ix.data_ptr(), iy.data_ptr(), out.data_ptr(), B, N, bins, plan.bands, plan.band_rows,
+                     plan.segment, plan.smem, torch.cuda.current_stream(ix.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"histogram2d: CUDA kernel launch failed (cudaError {err})")
     histogram2d.launches += 1

@@ -5,14 +5,15 @@
 - `lidar_bev`: padded point clouds -> 256x256 BEV histogram through the
   lidar-splat kernel (`ops/lidar_splat.py`).
 
-The host keeps JPEG decode, PCD parse and padding (`pad_point_cloud`). The
-JAX function's multi-device `mesh` branch comes with the data-parallel
-slice.
+The host keeps JPEG decode, PCD parse and padding (`pad_point_cloud`).
+`lidar_bev(mesh=...)` is the JAX function's `shard_map` branch: each
+device of the list splats its rows with the kernel, then the rows are
+gathered.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ import torch
 from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.ops.lidar_splat import batched_splat_points
 from diffusiondrive_torch.ops.sampling import resize_bilinear_no_aa
+from diffusiondrive_torch.parallel.mesh import device_scope, gather_rows, split_rows
 
 # OpenScene camera crops (`transfuser_features.py:64-69`)
 ROW_CROP = (28, -28)
@@ -42,10 +44,23 @@ def stitch_cameras(l0: torch.Tensor, f0: torch.Tensor, r0: torch.Tensor,
 
 
 def lidar_bev(points: torch.Tensor, valid: torch.Tensor,
-              config: Optional[TransfuserConfig] = None) -> torch.Tensor:
+              config: Optional[TransfuserConfig] = None, mesh: Optional[Sequence[torch.device]] = None
+              ) -> torch.Tensor:
     """(B, N, 3) padded float32 points + (B, N) bool mask -> (B, H, W, 1) BEV
-    feature, one histogram launch for the batch on CUDA."""
+    feature, one histogram launch for the batch on CUDA.
+
+    With a device list `mesh` of more than one device, the rows are split
+    over it (B a multiple of its length), each device runs one histogram
+    launch on its rows (the kernel on a card; never a plain version there),
+    and the BEV rows are gathered on the first device.
+    """
     config = config or TransfuserConfig()
+    if mesh is not None and len(mesh) > 1:
+        bevs = []
+        for dev, p, v in zip(mesh, split_rows(points, mesh), split_rows(valid, mesh)):
+            with device_scope(dev):
+                bevs.append(lidar_bev(p, v, config))
+        return gather_rows(bevs)
     return batched_splat_points(
         points, valid,
         min_x=config.lidar_min_x, max_x=config.lidar_max_x,

@@ -122,9 +122,10 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"fused_stem: no kernel for device {x.device}")
     out = torch.empty((B, 64, H // 4, W // 4), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
-    err = _lib()(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), B, H, W, C, int(x.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launcher launches on the current device
+        err = _lib()(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), B, H, W, C, int(x.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stem: CUDA kernel launch failed (cudaError {err})")
     fused_stem.launches += 1

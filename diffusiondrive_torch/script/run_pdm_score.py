@@ -5,9 +5,10 @@ Counterpart of `diffusiondrive_tpu/script/run_pdm_score.py` (navsim's
 (sensors read from disk, no map API), the metric cache, then the port's
 `evaluate/runner.py:run_pdm_score_evaluation` and its CSV. The agent and
 the simulation and scoring run on `--device` (default: the current CUDA
-device; it raises without one unless `--device cpu` is given). A non-zero
-`--mesh-devices` (data parallelism over several devices, ROADMAP item 15)
-raises.
+device; it raises without one unless `--device cpu` is given).
+`--mesh-devices N` splits each batch's agent forward and its simulate and
+score over N local devices of `--device`'s type (-1: all of them; the
+CPU counts as one device), as the JAX CLI's flag does.
 
 Example:
     python -m diffusiondrive_torch.script.run_pdm_score --agent diffusiondrive_agent \\
@@ -27,6 +28,7 @@ from diffusiondrive_torch.common.dataloader import MetricCacheLoader, SceneLoade
 from diffusiondrive_torch.config.registry import agent_from_config, load_split, scene_filter_from_split
 from diffusiondrive_torch.device import resolve_device
 from diffusiondrive_torch.evaluate.runner import run_pdm_score_evaluation, write_score_csv
+from diffusiondrive_torch.parallel.mesh import local_devices
 from diffusiondrive_torch.script.cli_common import add_common_args, resolve_run_config, snapshot_config
 
 
@@ -38,8 +40,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     parser.add_argument("--metric-cache-path", default=None)
     parser.add_argument(
         "--mesh-devices", type=int, default=0,
-        help="shard the eval batch over this many local devices (0 = one device; "
-             "more is not ported yet, ROADMAP item 15)")
+        help="shard the eval batch over this many local devices "
+             "(0 = single-device; -1 = all local devices)")
     args = parser.parse_args(argv)
 
     cfg = resolve_run_config(args)
@@ -48,11 +50,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
         cfg["metric_cache_path"] = args.metric_cache_path
     if not cfg.get("metric_cache_path"):
         parser.error("--metric-cache-path (or metric_cache_path in --config) is required")
-    n_mesh = int(cfg.get("mesh_devices", args.mesh_devices))
-    if n_mesh:
-        raise NotImplementedError(f"--mesh-devices {n_mesh}: evaluation over several devices is not "
-                                  "ported yet (ROADMAP item 15); use --mesh-devices 0")
     device = resolve_device(cfg.get("device"))
+    try:
+        mesh = local_devices(int(cfg.get("mesh_devices", args.mesh_devices)), device)
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
 
     agent = agent_from_config(cfg["agent"], device=device)
     split = load_split(cfg.get("split"))
@@ -74,6 +76,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
         host_id=int(cfg.get("host_id", 0)),
         num_hosts=int(cfg.get("num_hosts", 1)),
         device=device,
+        mesh=mesh,
     )
     out = write_score_csv(rows, Path(cfg["output_dir"]))
     print(json.dumps({"output_csv": str(out), "num_tokens": len(rows)}))

@@ -1,7 +1,7 @@
 """Training entry point of the port (counterpart of `diffusiondrive_tpu/script/run_training.py`).
 
-Builds the agent from the registry, caches or loads the dataset and trains
-on one device: the DiffusionDrive agents through the port's `Trainer`
+Builds the agent from the registry, caches or loads the dataset and trains:
+the DiffusionDrive agents through the port's `Trainer`
 (compute dtype from `precision`, float32 parameters and optimiser state;
 the default `bf16-mixed` is bf16 compute), simple agents (e.g.
 `ego_status_mlp_agent`) through `training/generic.py:train_agent`, their
@@ -11,21 +11,37 @@ at `cache_path` first, resumably) or, with `--cache-only`, the cache alone.
 Takes the JAX CLI's flags and `--config` composition, plus `--device`; the
 resolved config is snapshotted to `<output_dir>/config.yaml`.
 
+Like the JAX trainer, which trains on every local device, the DiffusionDrive
+agents train data-parallel (`DistributedDataParallel`, NCCL) on every
+visible card: under `torchrun` each process is the rank the launcher
+gives it (card `LOCAL_RANK`); otherwise, with more than one visible card
+and no `--device`, one rank a card is spawned. `batch_size` is the global
+batch, split evenly over the ranks. One card, or `--device`, trains as one
+process. Simple agents train on one device.
+
 Example (one GPU):
     python -m diffusiondrive_torch.script.run_training --config default_training \\
         navsim_log_path=<logs> sensor_blobs_path=<blobs> cache_path=<cache> batch_size=64
+Example (N GPUs of one host, explicitly):
+    torchrun --nproc-per-node N -m diffusiondrive_torch.script.run_training \\
+        --cache-path <cache> --cache-only --batch-size 64
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
 
 from diffusiondrive_torch.common.dataloader import SceneLoader
 from diffusiondrive_torch.config.registry import agent_from_config, load_split, scene_filter_from_split
 from diffusiondrive_torch.device import resolve_device
+from diffusiondrive_torch.parallel.distributed import initialize_distributed, launch
 from diffusiondrive_torch.script.cli_common import add_common_args, resolve_run_config, snapshot_config
 from diffusiondrive_torch.training.dataset import CacheOnlyDataset, Dataset, batch_iterator
 from diffusiondrive_torch.training.train import OptimizerConfig
@@ -42,6 +58,23 @@ def scene_loader(cfg: dict, split_key: str, sensor_config) -> SceneLoader:
         scene_filter_from_split(load_split(cfg.get(split_key))),
         sensor_config,
     )
+
+
+def _trains_with_trainer(cfg: dict) -> bool:
+    """The DiffusionDrive agents train through `Trainer` (and data-parallel);
+    simple agents through `training/generic.py`."""
+    return "diffusion" in cfg["agent"]["name"] or "transfuser" in cfg["agent"]["name"]
+
+
+def _rank0_first(rank: int, world: int, build):
+    """`build()` on rank 0 first (it may write the feature cache), then on
+    the other ranks, which find the cache complete."""
+    if world > 1 and rank != 0:
+        dist.barrier()
+    out = build()
+    if world > 1 and rank == 0:
+        dist.barrier()
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -64,14 +97,39 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not cfg.get("cache_path"):
         parser.error("--cache-path (or cache_path in --config) is required")
     snapshot_config(cfg, Path(cfg["output_dir"]))
-    device = resolve_device(cfg.get("device"))
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1 or dist.is_initialized()
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not launched and cfg.get("device") is None and cards > 1 and _trains_with_trainer(cfg):
+        launch(_train_rank, cards, args=(cfg,), device="cuda")
+        return
+    train(cfg)
+
+
+def _train_rank(rank: int, world: int, device: torch.device, cfg: dict) -> None:
+    """One spawned rank of `main` (the group is joined already)."""
+    train({**cfg, "device": str(device)})
+
+
+def train(cfg: dict) -> None:
+    """Train the configured agent; under `torchrun` (or in a group already
+    joined) as this process's rank, on card `LOCAL_RANK` unless
+    `cfg["device"]` names one."""
+    device = cfg.get("device")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and device is None:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    rank, world = initialize_distributed(device=device)
+    if world > 1 and not _trains_with_trainer(cfg):
+        raise SystemExit(f"Agent '{cfg['agent']['name']}' trains on one device; run it as one process.")
 
     # precision -> the model's compute dtype (parameters and optimiser stay
     # float32; the reference's `precision: 16-mixed`)
     precision = str(cfg.get("precision", "bf16-mixed"))
     if precision not in DTYPE_OF:
         raise ValueError(f"unknown precision {precision!r}; expected one of {sorted(DTYPE_OF)}")
-    if "diffusion" in cfg["agent"]["name"] or "transfuser" in cfg["agent"]["name"]:
+    if _trains_with_trainer(cfg):
         cfg["agent"].setdefault("dtype", DTYPE_OF[precision])
     agent = agent_from_config(cfg["agent"], device=device)
     feature_builders = agent.get_feature_builders()
@@ -84,8 +142,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if cfg.get("cache_only"):
         dataset = CacheOnlyDataset(cfg["cache_path"], feature_builders, target_builders)
     else:
-        dataset = Dataset(scene_loader(cfg, "split", agent.get_sensor_config()), feature_builders,
-                          target_builders, cache_path=cfg["cache_path"])
+        dataset = _rank0_first(rank, world, lambda: Dataset(
+            scene_loader(cfg, "split", agent.get_sensor_config()), feature_builders, target_builders,
+            cache_path=cfg["cache_path"]))
 
     if not hasattr(agent, "model"):
         raise SystemExit(f"Agent '{cfg['agent']['name']}' does not support training.")
@@ -114,11 +173,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       callbacks=agent.get_training_callbacks(output_dir=cfg["output_dir"]))
     val_batches = None
     if cfg.get("val_split"):
-        val_dataset = Dataset(scene_loader(cfg, "val_split", agent.get_sensor_config()), feature_builders,
-                              target_builders, cache_path=cfg["cache_path"])
-        val_batches = lambda epoch: batch_iterator(val_dataset, batch_size, shuffle=False)  # noqa: E731
+        val_dataset = _rank0_first(rank, world, lambda: Dataset(
+            scene_loader(cfg, "val_split", agent.get_sensor_config()), feature_builders, target_builders,
+            cache_path=cfg["cache_path"]))
+        val_batches = lambda epoch: batch_iterator(val_dataset, batch_size, shuffle=False,  # noqa: E731
+                                                   rank=rank, world_size=world)
     trainer.fit(
-        lambda epoch: batch_iterator(dataset, batch_size, shuffle=True, seed=seed + epoch),
+        lambda epoch: batch_iterator(dataset, batch_size, shuffle=True, seed=seed + epoch,
+                                     rank=rank, world_size=world),
         num_epochs=epochs,
         val_batches=val_batches,
         checkpoint_every_epochs=int(cfg.get("checkpoint_every_epochs", 1)),

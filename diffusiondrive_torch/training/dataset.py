@@ -22,6 +22,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from diffusiondrive_torch.common.dataloader import SceneLoader
+from diffusiondrive_torch.parallel.mesh import rank_rows
 from diffusiondrive_torch.training.abstract_feature_target_builder import (
     AbstractFeatureBuilder,
     AbstractTargetBuilder,
@@ -151,16 +152,30 @@ def collate(samples: List[Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]) 
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = True, num_workers: int = 8) -> Iterator[Dict[str, np.ndarray]]:
+                   drop_last: bool = True, num_workers: int = 8, rank: int = 0,
+                   world_size: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     """Threaded batch loader: the gzip reads of the next batches overlap the
-    device's work on the current one (4 batches ahead)."""
+    device's work on the current one (4 batches ahead).
+
+    Data-parallel: `batch_size` is the global batch; every rank follows the
+    same order (the seed is shared) and loads only its rows of each batch,
+    ``[rank * b, (rank + 1) * b)`` with ``b = batch_size / world_size``. A
+    batch that the world size does not divide raises.
+    """
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     num_batches = len(order) // batch_size if drop_last else -(-len(order) // batch_size)
+    if world_size > 1:
+        last = batch_size if drop_last or not num_batches else len(order) - (num_batches - 1) * batch_size
+        sizes = {batch_size, last}
+        if any(size % world_size for size in sizes):
+            raise ValueError(f"a global batch of {sorted(sizes)} rows does not split over {world_size} ranks")
 
     def load_batch(b: int) -> Dict[str, np.ndarray]:
         idxs = order[b * batch_size:(b + 1) * batch_size]
+        if world_size > 1:
+            idxs = idxs[rank_rows(len(idxs), rank, world_size)]
         return collate([dataset[int(i)] for i in idxs])
 
     with ThreadPoolExecutor(max_workers=num_workers) as pool:

@@ -11,6 +11,13 @@ device, on the detached float32 cost: kernel B4 on the card for n <= 31,
 with no host round trip; above that, as JAX takes its XLA solver, the plain
 solver on the card, whose loops read their exit condition on the host.
 Nothing else here synchronises with the host.
+
+Under a process group of more than one rank (data-parallel training) the
+box loss's normaliser, the count of valid agents, is summed over the
+group, and each rank's term is scaled by the world size: the mean of the
+ranks' terms is then the global batch's. Every other term is a mean over
+rows of equal size on every rank, so the ranks' mean of it is already the
+global batch's.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -25,6 +33,7 @@ from diffusiondrive_torch.models.config import TransfuserConfig
 from diffusiondrive_torch.models.layers import stat_dtype
 from diffusiondrive_torch.ops.hungarian import MAX_N, batched_linear_sum_assignment, linear_sum_assignment_plain
 from diffusiondrive_torch.ops.sampling import take_rows
+from diffusiondrive_torch.parallel.distributed import world_size
 
 
 def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -95,7 +104,15 @@ def agent_detection_loss(targets: Dict[str, torch.Tensor], predictions: Dict[str
     gt_valid = targets["agent_labels"].float()    # (B, N)
     pred_states = predictions["agent_states"]     # (B, N, 5)
     pred_logits = predictions["agent_labels"]     # (B, N)
-    num_gt = torch.clamp_min(gt_valid.sum(), 1.0)
+    world = world_size()
+    if world > 1:
+        # the batch's count of valid agents is global under data
+        # parallelism, as under JAX's mesh; no host sync on the card
+        count = gt_valid.sum().detach()
+        dist.all_reduce(count)
+        num_gt = torch.clamp_min(count, 1.0)
+    else:
+        num_gt = torch.clamp_min(gt_valid.sum(), 1.0)
 
     cost = (config.agent_class_weight * _ce_cost(gt_valid, pred_logits)
             + config.agent_box_weight * _l1_cost(gt_states, pred_states, gt_valid))
@@ -110,7 +127,10 @@ def agent_detection_loss(targets: Dict[str, torch.Tensor], predictions: Dict[str
     gt_states_m = take_rows(gt_states, cols)
     gt_valid_m = take_rows(gt_valid, cols)
     l1 = (pred_states - gt_states_m).abs().sum(-1) * gt_valid_m
-    l1_loss = l1.sum() / num_gt
+    # a rank's term is scaled by the world size, so that the ranks' mean
+    # (DDP averages gradients, the trainer the reported terms) is the
+    # global sum over the global count
+    l1_loss = l1.sum() / num_gt if world == 1 else l1.sum() * world / num_gt
     ce_loss = sigmoid_binary_cross_entropy(pred_logits, gt_valid_m).mean()
     return ce_loss, l1_loss
 

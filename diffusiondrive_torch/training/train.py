@@ -13,8 +13,13 @@ Counterpart of `diffusiondrive_tpu/training/train.py` on one device:
 - `make_val_step`: the eval forward (the truncated 2-step DDIM rollout an
   evaluation runs) with the loss suite and ADE/FDE.
 
-The JAX package's mesh, sharding and buffer donation have no counterpart
-here: data-parallel training is a later slice of the port.
+The JAX package's mesh becomes `DistributedDataParallel` (one process a
+card, `training/trainer.py`): a state whose `ddp` is set runs its forward
+through that wrapper, so the backward averages the gradients over the
+ranks before the clip and the update, and the step's loss terms are
+averaged over the ranks (one all-reduce, no host sync), as the JAX step
+sharded over a mesh computes them on the global batch. Buffer donation has
+no counterpart.
 
 The step runs under profiler ranges "forward", "loss", "backward" and
 "optimizer" ("lap" inside "loss"), which `script/run_profile.py --train`
@@ -32,6 +37,7 @@ from torch.optim.lr_scheduler import LambdaLR
 from torch.profiler import record_function
 
 from diffusiondrive_torch.models.config import TransfuserConfig
+from diffusiondrive_torch.parallel.distributed import all_reduce_mean
 from diffusiondrive_torch.training.losses import transfuser_loss
 from diffusiondrive_torch.training.scheduler import warmup_cos_lr
 
@@ -94,7 +100,9 @@ def clip_by_global_norm_(params: List[nn.Parameter], max_norm: float) -> torch.T
 class TrainState:
     """What a train step mutates: the model (parameters and BN statistics),
     the optimiser, its LR scheduler, the step and the EMA of the parameters
-    (a deep copy, never an alias of them)."""
+    (a deep copy, never an alias of them). `ddp`, when set, is the model
+    wrapped in `DistributedDataParallel`, which the forward runs through;
+    parameters, EMA and checkpoints are always those of `model`."""
 
     model: nn.Module
     optimizer: torch.optim.AdamW
@@ -102,6 +110,7 @@ class TrainState:
     opt_cfg: OptimizerConfig
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ddp: Optional[nn.Module] = None
 
 
 def create_train_state(model: nn.Module, opt_cfg: OptimizerConfig) -> TrainState:
@@ -141,11 +150,14 @@ def train_step(state: TrainState, config: TransfuserConfig, batch: Dict[str, tor
                noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One step on device tensors: forward, loss, backward, AdamW update,
     LR schedule and EMA. Returns the loss terms as detached device scalars
-    (reading them is the caller's sync)."""
+    (reading them is the caller's sync). With `state.ddp` the gradients are
+    averaged over the ranks inside the backward, before the clip, and the
+    returned terms are the ranks' mean."""
     model = state.model
-    model.train()
+    net = state.ddp if state.ddp is not None else model
+    net.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss, loss_dict = make_loss_fn(model, config)(batch, generator, timesteps, noise)
+    loss, loss_dict = make_loss_fn(net, config)(batch, generator, timesteps, noise)
     with record_function("backward"):
         loss.backward()
     with record_function("optimizer"):
@@ -159,22 +171,24 @@ def train_step(state: TrainState, config: TransfuserConfig, batch: Dict[str, tor
                 for name, p in model.named_parameters():
                     state.ema_params[name].mul_(decay).add_(p.detach(), alpha=1.0 - decay)
     state.step += 1
-    return {k: v.detach() for k, v in loss_dict.items()}
+    out = {k: v.detach() for k, v in loss_dict.items()}
+    return all_reduce_mean(out) if state.ddp is not None else out
 
 
 def make_val_step(model: nn.Module, config: TransfuserConfig) -> Callable:
     """Validation on the eval forward (the truncated 2-step DDIM rollout an
     evaluation runs) with the loss suite and the open-loop ADE/FDE. `params`
     (name -> tensor, e.g. the EMA copy) replaces the model's parameters for
-    the call."""
+    the call; `noise` fixes the rollout's draw (else from `generator`)."""
 
     @torch.no_grad()
     def val_step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
-                 params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model.eval()
         targets = _targets(batch)
         args = (batch["camera_feature"], batch["lidar_feature"], batch["status_feature"])
-        kwargs = {"generator": generator}
+        kwargs = {"generator": generator, "diffusion_noise": noise}
         if params is None:
             outputs = model(*args, **kwargs)
         else:

@@ -1,15 +1,28 @@
 """Training orchestration: epochs, logging, checkpoints.
 
-Counterpart of `diffusiondrive_tpu/training/trainer.py` on one device. The
-per-step work is `train.train_step`; this class runs the host loop: batch
-iteration and the copy to the device, the deferred metric fetch, callback
-hooks, a per-step `metrics.jsonl`, validation (of the EMA weights too) and
+Counterpart of `diffusiondrive_tpu/training/trainer.py`. The per-step work
+is `train.train_step`; this class runs the host loop: batch iteration and
+the copy to the device, the deferred metric fetch, callback hooks, a
+per-step `metrics.jsonl`, validation (of the EMA weights too) and
 checkpoints.
+
+Where the JAX trainer shards each batch over a device mesh, this one runs
+in each process of a `torch.distributed` group (one a card; `torchrun` or
+`parallel/distributed.py:launch`): when a group is initialized the model
+is wrapped in `DistributedDataParallel`, each rank is given its rows of
+every global batch (`training/dataset.py:batch_iterator(rank=,
+world_size=)`), the diffusion draws are made for the global batch and
+sliced (`DiffusionTrajectoryHead.train_draws`), validation metrics are
+averaged over the ranks, and rank 0 alone writes metrics and checkpoints,
+from the unwrapped model. Without a group nothing of this runs.
 
 Each step's draws (the diffusion timesteps and noise, every dropout mask)
 come from one generator on the device, seeded from (`seed + 1`, step), as
 the JAX trainer folds the step into its key: a resumed run draws what the
-uninterrupted run would have, with no saved generator state.
+uninterrupted run would have, with no saved generator state. Under a
+group the timesteps and noise come from that generator for the global
+batch, and the dropout masks from one seeded from (`seed + 1`, step,
+rank), so that the ranks' masks differ.
 
 A checkpoint is a directory ``epoch_<NNNN>`` holding ``state.pt``
 (`torch.save`) with what the JAX package's orbax checkpoint holds: params,
@@ -19,6 +32,7 @@ LR scheduler and the number of finished epochs.
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import time
@@ -27,9 +41,12 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from diffusiondrive_torch.models.config import TransfuserConfig
+from diffusiondrive_torch.parallel.distributed import all_reduce_mean
+from diffusiondrive_torch.parallel.mesh import rank_rows
 from diffusiondrive_torch.training.train import (
     OptimizerConfig,
     TrainState,
@@ -72,7 +89,8 @@ def load_checkpoint(path: Union[str, Path], device: torch.device) -> Dict:
 
 
 class Trainer:
-    """The train loop on the model's device."""
+    """The train loop on the model's device; data-parallel over the ranks of
+    the default process group when one is initialized."""
 
     def __init__(self, model: nn.Module, model_config: TransfuserConfig, opt_cfg: OptimizerConfig,
                  output_dir: Optional[str] = None, seed: int = 0, callbacks: Optional[List] = None):
@@ -86,10 +104,15 @@ class Trainer:
         self.state: Optional[TrainState] = None
         self.epochs_done = 0
         self.last_val_metrics: Dict[str, float] = {}
+        self.last_train_metrics: Dict[str, float] = {}
         self._val_fn = make_val_step(self.model, model_config)
         self._eval_fn = make_eval_step(self.model)
         self._generator = torch.Generator(device=self.device)
         self._metrics_fp = None
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.rank, self.world_size = (dist.get_rank(), dist.get_world_size()) if self.distributed else (0, 1)
+        if self.distributed:
+            self._rank_generator = torch.Generator(device=self.device)
 
     def _hook(self, name: str, *args, **kwargs) -> None:
         """Invoke `name` on every callback that implements it; a callback's
@@ -104,7 +127,7 @@ class Trainer:
 
     def _log_metrics(self, split: str, epoch: int, step: int, metrics: Dict[str, float]) -> None:
         """Append one row to `<output_dir>/metrics.jsonl`."""
-        if self.output_dir is None:
+        if self.output_dir is None or self.rank != 0:
             return
         if self._metrics_fp is None:
             self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -115,13 +138,42 @@ class Trainer:
         self._metrics_fp.flush()
 
     def setup(self) -> None:
-        """Create the optimiser state (and the EMA copy) for the model."""
+        """Create the optimiser state (and the EMA copy) for the model; under
+        a process group, wrap the model in `DistributedDataParallel` (which
+        copies rank 0's parameters and buffers to every rank)."""
         self.state = create_train_state(self.model, self.opt_cfg)
+        if self.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+
+            cuda = self.device.type == "cuda"
+            # BN statistics are global (`models/layers.py`), so the buffers
+            # agree on every rank without DDP's per-forward broadcast (the
+            # wrapper still copies rank 0's at construction)
+            no_sync = ({"forward_sync_buffers": False}
+                       if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+                       else {"broadcast_buffers": False})
+            self.state.ddp = DistributedDataParallel(self.model, device_ids=[self.device.index] if cuda else None,
+                                                     **no_sync)
 
     def step_generator(self, step: int) -> torch.Generator:
         """The device generator re-seeded for `step` from (seed + 1, step)."""
         seed = np.random.SeedSequence([self.seed + 1, step]).generate_state(1, np.uint64)[0]
         return self._generator.manual_seed(int(seed))
+
+    def rank_generator(self, step: int) -> torch.Generator:
+        """Under a process group: the dropout generator of this rank at
+        `step`, seeded from (seed + 1, step, rank)."""
+        seed = np.random.SeedSequence([self.seed + 1, step, self.rank]).generate_state(1, np.uint64)[0]
+        return self._rank_generator.manual_seed(int(seed))
+
+    def global_draws(self, step: int, rows: int):
+        """Under a process group: (timesteps, noise) of this rank's `rows`,
+        drawn from `step_generator(step)` for the global batch of
+        `rows * world_size` rows, as one device would draw them."""
+        total = rows * self.world_size
+        timesteps, noise = self.model.trajectory_head.train_draws(total, self.step_generator(step))
+        mine = rank_rows(total, self.rank, self.world_size)
+        return timesteps[mine], noise[mine]
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A numpy batch on the trainer's device. On CUDA the arrays are
@@ -181,8 +233,14 @@ class Trainer:
                 if self.state is None:
                     self.setup()
                 tensors = self.to_device(batch)
-                metrics = train_step(self.state, self.model_config, tensors,
-                                     self.step_generator(self.state.step))
+                if self.state.ddp is None:
+                    metrics = train_step(self.state, self.model_config, tensors,
+                                         self.step_generator(self.state.step))
+                else:
+                    step = self.state.step
+                    timesteps, noise = self.global_draws(step, len(tensors["status_feature"]))
+                    metrics = train_step(self.state, self.model_config, tensors, self.rank_generator(step),
+                                         timesteps=timesteps, noise=noise)
                 count += 1
                 pending.append((self.state.step, metrics))
                 if count % log_every == 0:
@@ -190,6 +248,7 @@ class Trainer:
                                 {k: round(v, 4) for k, v in flush_pending().items()})
             flush_pending()
             means = {k: v / max(count, 1) for k, v in metrics_acc.items()}
+            self.last_train_metrics = means
             logger.info("epoch %d done in %.1fs (%d steps): train %s", epoch,
                         time.perf_counter() - epoch_start, count,
                         {k: round(v, 4) for k, v in means.items()})
@@ -208,10 +267,13 @@ class Trainer:
         """Validation on the eval forward, with a fixed noise draw (the
         generator re-seeded to 0 for every batch); with EMA on, the EMA
         weights are validated too, under `ema_` names. The first batch also
-        feeds any `on_validation_batch` callback with the eval outputs."""
+        feeds any `on_validation_batch` callback with the eval outputs (on
+        rank 0). Under a process group each rank validates its rows and the
+        metrics are averaged over the ranks, as JAX's `shard_val_step`
+        computes them on the global batch."""
         if self.state is None:
             self.setup()
-        wants_outputs = any(getattr(cb, "on_validation_batch", None) for cb in self.callbacks)
+        wants_outputs = self.rank == 0 and any(getattr(cb, "on_validation_batch", None) for cb in self.callbacks)
         variants = [("", None)]
         if self.state.ema_params is not None:
             variants.append(("ema_", self.state.ema_params))
@@ -219,8 +281,13 @@ class Trainer:
         count = 0
         for batch in batches:
             tensors = self.to_device(batch)
+            noise = None
+            if self.distributed:   # the noise of the global batch, this rank's rows (as one device draws it)
+                rows = len(tensors["status_feature"])
+                noise = self.model.trajectory_head.draw_noise(rows * self.world_size, self._generator.manual_seed(0))
+                noise = noise[rank_rows(rows * self.world_size, self.rank, self.world_size)]
             for prefix, params in variants:
-                metrics = self._val_fn(tensors, self._generator.manual_seed(0), params)
+                metrics = self._val_fn(tensors, self._generator.manual_seed(0), params, noise)
                 for k, v in metrics.items():
                     totals[prefix + k] = totals.get(prefix + k, 0.0) + v
             if count == 0 and wants_outputs:
@@ -228,6 +295,8 @@ class Trainer:
                 outputs = {k: v.float().cpu().numpy() for k, v in outputs.items()}
                 self._hook("on_validation_batch", epoch, batch, outputs, 0)
             count += 1
+        if self.distributed:
+            totals = all_reduce_mean(totals)
         fetched = self._fetch([totals])
         means = {k: v / max(count, 1) for k, v in (fetched[0] if fetched else {}).items()}
         self.last_val_metrics = means
@@ -236,16 +305,22 @@ class Trainer:
         return means
 
     def save_checkpoint(self, epoch: int) -> Path:
+        """Write ``epoch_<NNNN>/state.pt`` from the unwrapped model (no
+        ``module.`` prefix); under a process group rank 0 writes it and
+        every rank waits for it at a barrier."""
         path = (self.output_dir / f"epoch_{epoch:04d}").absolute()
-        path.mkdir(parents=True, exist_ok=True)
-        payload = {**split_state_dict(self.model),
-                   "opt_state": self.state.optimizer.state_dict(),
-                   "scheduler": self.state.scheduler.state_dict(),
-                   "step": self.state.step, "epoch": self.epochs_done}
-        if self.state.ema_params is not None:
-            payload["ema_params"] = self.state.ema_params
-        torch.save(payload, path / CHECKPOINT_FILE)
-        logger.info("saved checkpoint %s", path)
+        if self.rank == 0:
+            path.mkdir(parents=True, exist_ok=True)
+            payload = {**split_state_dict(self.model),
+                       "opt_state": self.state.optimizer.state_dict(),
+                       "scheduler": self.state.scheduler.state_dict(),
+                       "step": self.state.step, "epoch": self.epochs_done}
+            if self.state.ema_params is not None:
+                payload["ema_params"] = self.state.ema_params
+            torch.save(payload, path / CHECKPOINT_FILE)
+            logger.info("saved checkpoint %s", path)
+        if self.distributed:
+            dist.barrier()
         return path
 
     def restore_checkpoint(self, path: Union[str, Path]) -> None:

@@ -320,9 +320,17 @@ def test_pdm_score_and_submission_clis_match_jax(cli_inputs, tmp_path, monkeypat
     direct = _one_csv(tmp_path / "p_score")
     _assert_csv_equal(direct, _one_csv(tmp_path / "j_score"))
     assert len(direct) == n + 2 and all(r[2] == "True" for r in direct[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    # --mesh-devices over the CPU's one device gives JAX's --mesh-devices 1
+    # CSV; more devices than there are raises JAX's range message
+    _jax_main(j_score, score_args + ["--output-dir", str(tmp_path / "j_mesh"), "--mesh-devices", "1"], monkeypatch)
+    for mesh in ("1", "-1"):
+        run_pdm_score.main(score_args + ["--output-dir", str(tmp_path / f"mesh{mesh}"), "--device", "cpu",
+                                         "--mesh-devices", mesh])
+        _assert_csv_equal(_one_csv(tmp_path / f"mesh{mesh}"), _one_csv(tmp_path / "j_mesh"))
+    with pytest.raises(SystemExit, match=r"--mesh-devices must be 0 \(no mesh\), -1 \(all\) or 1\.\.1 "
+                                         r"\(have 1 devices\), got 2"):
         run_pdm_score.main(score_args + ["--output-dir", str(tmp_path / "mesh"), "--device", "cpu",
-                                         "--mesh-devices", "1"])
+                                         "--mesh-devices", "2"])
 
     team = ["--team-name", "t", "--authors", "a", "--email", "e", "--institution", "i", "--country", "c"]
     run_create_submission_pickle.main(common + team + ["--output-dir", str(tmp_path / "p_sub"), "--device", "cpu"])

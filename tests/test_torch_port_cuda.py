@@ -697,3 +697,33 @@ def test_cuda_run_training_cli_scene_backed(cuda_device, tmp_path):
         assert len(rows) == len(tokens) // 2 and all(np.isfinite(r["loss"]) for r in rows), rows
         assert (tmp_path / dev / "epoch_0000" / "state.pt").exists()
         assert batched_linear_sum_assignment.launches == (len(rows) if dev == "card" else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_ddp_step_on_two_ranks_equals_one_rank(cuda_device, tmp_path):
+    """`tests/test_torch_port_parallel.py`'s 2-rank SGD step (float64, the
+    JAX dry run's tiny config and batch of 4, targets at the predictions) on
+    the card: 2 ranks (NCCL over two cards, else gloo with CUDA tensors on
+    one) against 1 rank on the global batch, within JAX's tiers; the ranks'
+    parameters, gradients and EMA the same bits; 1 LAP launch a rank."""
+    import torch_parallel_ranks as ranks
+
+    from diffusiondrive_torch.entry import DRYRUN_CONFIG, dryrun_batch
+    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.parallel.distributed import launch
+
+    cfg = TransfuserConfig(**DRYRUN_CONFIG)
+    batch = ranks.placed_batch(cfg, dryrun_batch(4))
+    two_cards = torch.cuda.device_count() >= 2
+    out = launch(ranks.step_rank, 2, args=(cfg, batch, torch.float64), device="cuda" if two_cards else "cuda:0",
+                 backend=None if two_cards else "gloo", init_method=f"file://{tmp_path / 'store'}", timeout=300)
+    one = ranks.step_rank(0, 1, torch.device("cuda", 0), cfg, batch, torch.float64)
+    assert one["lap"] == 1 and [o["lap"] for o in out] == [1, 1]
+    assert out[0]["digest"] == out[1]["digest"] and out[0]["metrics"] == out[1]["metrics"]
+    for key, want in one["metrics"].items():
+        tol = 2e-3 if key == "agent_box_loss" else 3e-6
+        assert abs(out[0]["metrics"][key] - want) <= tol * max(abs(want), 1e-6), key
+    for k, want in one["stats"].items():
+        assert (out[0]["stats"][k] - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1e-6), k
+    for k, want in one["params"].items():
+        assert (out[0]["params"][k] - want).abs().max().item() < 5.0 * ranks.LR, k
