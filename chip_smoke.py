@@ -35,7 +35,8 @@ line per phase, then one JSON line per kernel summary, then the result:
                host's launch rate), the three beside it as `*_runs`.
                ``kernel attention_fwd`` / ``attention_bwd`` (the fused
                attention at the fusion blocks' B=64, H=4, T=320 and each
-               stage's D = 16, 32, 64, 128, bf16 and f32, without and with a
+               stage's D = 16, 32, 64, 128, and ResNet-50's stage-3 D = 256
+               (bf16 on the CUDA cores), bf16 and f32, without and with a
                p=0.1 keep mask; `path` names the kernel that ran, "mma"
                (bf16, tensor cores) or "cuda_core" (f32); library:
                `scaled_dot_product_attention` unmasked with its backend
@@ -200,13 +201,23 @@ line per phase, then one JSON line per kernel summary, then the result:
                `cli_path`'s); `entry.dryrun_multichip(n)` over the n cards
                (golden loss, 7/12). The phase's launches include the
                spawned ranks'.
+9b. ``variants_path`` every other model variant of the registry at full
+               width (`phase_variants_path`: the MLP, UNet and ResNet-50
+               nuScenes agents): float32 card vs CPU, bf16 agent frames/s
+               at B=1 and B=16, a float32 train step card vs CPU, a bf16
+               `Trainer.fit` (nuScenes also switched: 6 + 6 attention),
+               `run_pdm_score` with the MLP and UNet agents on
+               `cli_path`'s logs, `evaluate_nuscenes` card vs CPU; launch
+               counts throughout (conv3x3: 12 a forward, 0 for ResNet-50).
 10. a ``chip_smoke wall`` line (the script's seconds), a
-               ``{"kernels": [...]}`` line, then ``{"ok": true, "device":
-               {...}}`` last.
+               ``{"kernels": [...]}`` line (the attention entries with
+               their D = 256 rows under ``resnet50_d256``), then
+               ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --only ddp_path`` runs phases 1, 2, 8 and 9 and
 the last line only: on a machine of several cards, the check of the
-data-parallel paths across them.
+data-parallel paths across them. ``--only variants_path`` runs phases 1,
+2, 8 and 9b and the last line.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -582,6 +593,7 @@ def phase_lidar_splat(dev) -> dict:
 
 ATTN_BHT = (64, 4, 320)        # batch, heads, tokens of the fusion blocks at the CLI's batch
 ATTN_D = (16, 32, 64, 128)     # head widths of fusion stages 1-4 (C / 4 for C = 64..512)
+ATTN_D_R50 = (256,)            # ResNet-50's stage 3 (C = 1024), the widest the gate takes (stage 4's 512 is not)
 # the stems at B=16, and the camera at B=1 (NAVSIM's per-scene call), NHWC
 STEM_ROWS = (("camera", (16, 256, 1024, 3)), ("lidar", (16, 256, 256, 1)), ("camera b1", (1, 256, 1024, 3)))
 CONV_EVAL = (("image", (16, 64, 256, 64)), ("lidar", (16, 64, 64, 64)))   # layer 1 at B=16, NHWC
@@ -592,7 +604,8 @@ SDPA_BACKEND = {torch.bfloat16: SDPBackend.CUDNN_ATTENTION, torch.float32: SDPBa
 
 def phase_attention(dev) -> dict:
     """The fused attention kernels (forward, backward) at the fusion blocks'
-    shapes (B=64, H=4, T=320, every stage's D) in bf16 and f32, without and
+    shapes (B=64, H=4, T=320, every stage's D, and ResNet-50's stage-3
+    D = 256, which bf16 runs on the CUDA cores) in bf16 and f32, without and
     with a p=0.1 keep mask, against their plain versions on the same inputs
     (bf16 also within 2 bf16 ulps of max |plain|, `check_bf16_ulps`):
     q, k, v and dO as (B, H, T, D) views of (B, T, H, D) memory, as the
@@ -610,7 +623,7 @@ def phase_attention(dev) -> dict:
     B, H, T = ATTN_BHT
     gen, mask_gen = torch.Generator().manual_seed(4), torch.Generator(device=dev)
     summary, warm = {}, False
-    for D in ATTN_D:
+    for D in ATTN_D + ATTN_D_R50:
         base = [torch.randn(B, T, H, D, generator=gen) for _ in range(4)]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (t.to(dev, dtype).transpose(1, 2) for t in base)
@@ -2291,6 +2304,327 @@ def phase_ddp_path(dev, card: str, cli_root: Path) -> dict:
     return counts
 
 
+VARIANT_TRAIN_B = 8       # the bf16 `Trainer.fit` of each variant: 2 steps at this batch
+VARIANT_ITERS = {1: 5, 16: 3}   # timed agent calls at B=1 (compute_trajectory) and B=16 (forward)
+
+
+def _variant_outputs_ok(name: str, out: dict, batch: int, cfg) -> None:
+    """Every output finite, at the shapes of the variant's head."""
+    shapes = {"trajectory": (batch, cfg.num_poses, 3), "agent_states": (batch, 30, 5), "agent_labels": (batch, 30),
+              "bev_semantic_map": (batch, 128, 256, 7)}
+    if "poses_reg" in out:
+        shapes.update(poses_reg=(batch, cfg.ego_fut_mode, cfg.num_poses, 3), poses_cls=(batch, cfg.ego_fut_mode))
+    if set(out) != set(shapes):
+        raise AssertionError(f"variants_path {name}: outputs {sorted(out)}, want {sorted(shapes)}")
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape or not torch.isfinite(torch.as_tensor(out[k]).float()).all():
+            raise AssertionError(f"variants_path {name} {k}: shape {tuple(out[k].shape)} (want {shape}) or non-finite")
+
+
+def phase_variants_path(dev, card: str, cli_root: Path) -> dict:
+    """Every model variant of the registry beside `diffusiondrive_agent`
+    (`entry.VARIANTS`: `transfuser_agent`, the MLP head;
+    `diffusion_policy_agent`, the diffusion-policy UNet with its 20-step
+    DDIM; `diffusiondrive_nuscenes_agent`, ResNet-50 encoders, 6 poses,
+    k-means anchors) at full width, seeded weights, through the entry points:
+
+    (a) float32 B=1 planner forward on the card against the CPU, the noise
+        fixed (`MAIN_TOL` x max(1, |CPU|)): 2 stem and 12 conv3x3 launches
+        (ResNet-50: 0 conv3x3, its Bottleneck takes the module path, as JAX's);
+    (b) the bf16 raw-sensor agent (`entry.agent_entry`): `compute_trajectory`
+        at B=1 (`forward` for the 6-pose nuScenes agent, whose
+        `compute_trajectory` raises in both packages: NAVSIM's `Trajectory`
+        holds 8 poses) and `forward` at B=16, frames/s on the host clock with the
+        copy and with the inputs on the card; 1 splat, 2 stem, 12 or 0
+        conv3x3 a forward;
+    (c) one float32 train step at B=2, seed 5 (`entry.comparison_batch`:
+        a detection assignment unique by `MIN_ASSIGNMENT_MARGIN`;
+        `entry.train_step_on`) on the card and the CPU, each also in
+        float64: the card's float32 losses within 1e-3 x max(1, |v|) of the
+        CPU's float32 ones and of the CPU's float64 ones, card float64
+        gradients within 1e-6 relative L2 of the CPU's; 1 LAP a card step;
+        logged: each step's assignment margin and whether it matched every
+        valid target as the CPU float64 step did;
+    (d) a bf16 `Trainer.fit` of 2 steps at B=8: 1 LAP a step, finite losses;
+        for nuScenes also one switched step (`fused_attention_mode="on"`,
+        `fused_conv_mode="train"`): 6 attention forwards and 6 backwards
+        (stages 1-3; stage 4's D = 512 fails the gate and takes the module
+        path, as in JAX), no conv3x3;
+    (e) `run_pdm_score` with `agent=transfuser_agent` and with
+        `diffusion_policy_agent` on `cli_path`'s logs and metric cache: every
+        row valid, 1 splat, 2 stem, 12 conv3x3 a batch;
+    (f) `evaluate_nuscenes` on the card over the nuScenes agent's 6-pose
+        outputs of (b) against seeded GT and agent boxes, equal to the
+        CPU's within 1e-6;
+    (g) `run_training --config default_training` of each variant on
+        `cli_path`'s logs (scene-backed, bf16, one epoch of 2 steps at B=8;
+        the MLP and UNet agents on `cli_path`'s cache, the nuScenes agent
+        caching its own 6-pose targets): finite losses, a checkpoint, 1 LAP
+        a step.
+
+    The counters are set to 0 at the phase's start and read at its end;
+    they must equal the launches counted step by step. Returns them."""
+    import csv
+    import dataclasses
+
+    from diffusiondrive_torch.agents.diffusiondrive.features import RawSensorFeatureBuilder
+    from diffusiondrive_torch.entry import (
+        VARIANTS, agent_entry, assignment_margin, build_model, comparison_batch, example_agent_input,
+        example_inputs, example_training_sample, grad_distances, train_step_on, variant_config)
+    from diffusiondrive_torch.evaluate.nuscenes_metrics import evaluate_nuscenes
+    from diffusiondrive_torch.ops.lidar_splat import histogram2d
+    from diffusiondrive_torch.script import run_pdm_score
+    from diffusiondrive_torch.training.dataset import collate
+    from diffusiondrive_torch.training.train import OptimizerConfig
+    from diffusiondrive_torch.training.trainer import Trainer
+
+    fns = {"splat": histogram2d, **_launch_counters()}
+    want = {k: 0 for k in fns}
+
+    def counted():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in fns.items()}
+
+    def delta(before):
+        now = counted()
+        return {k: now[k] - before[k] for k in fns if now[k] - before[k]}
+
+    phase_t0 = time.perf_counter()
+    for f in fns.values():
+        f.launches = 0
+    cpu = torch.device("cpu")
+    raw_inputs = [example_agent_input(seed=300 + b) for b in range(16)]
+    builder = RawSensorFeatureBuilder(variant_config("transfuser_agent")[1])
+    feats = [builder.compute_features(a) for a in raw_inputs]
+    batches = {1: {k: np.asarray(v)[None] for k, v in feats[0].items()},
+               16: {k: np.stack([f[k] for f in feats]) for k in feats[0]}}
+    del feats
+    nuscenes_traj = None
+    summary = {}
+    for name in sorted(VARIANTS):
+        head, cfg = variant_config(name)
+        conv = 0 if cfg.image_architecture == "resnet50" else 12
+        t_var = time.perf_counter()
+
+        # (a) float32 B=1: card with the kernels vs CPU with the plain versions
+        model_cpu = build_model(cfg, torch.float32, seed=0, trajectory_head_type=head)
+        noise = model_cpu.trajectory_head.draw_noise(1, torch.Generator().manual_seed(0))
+        inputs = example_inputs(cfg, 1, cpu, seed=1)
+        with torch.no_grad():
+            model_gpu = copy.deepcopy(model_cpu).to(dev)
+            before = counted()
+            out_gpu = model_gpu(**{k: v.to(dev) for k, v in inputs.items()},
+                                diffusion_noise=None if noise is None else noise.to(dev))
+            got = delta(before)
+            if got != {"stem": 2, **({"conv3x3": conv} if conv else {})}:
+                raise AssertionError(f"variants_path {name} f32 forward: launches {got}, want 2 stem, {conv} conv3x3")
+            want["stem"] += 2
+            want["conv3x3"] += conv
+            out_cpu = model_cpu(**inputs, diffusion_noise=noise)
+        _variant_outputs_ok(name, out_gpu, 1, cfg)
+        errs = {k: check_close(f"variants_path {name} f32 {k}", out_gpu[k].cpu(), out_cpu[k], MAIN_TOL)[0]
+                for k in out_cpu}
+        log(f"variants_path {name} f32 b1 card-vs-cpu", card=card, head=head, backbone=cfg.image_architecture,
+            poses=cfg.num_poses, max_abs_err=errs, tol_rel=MAIN_TOL, launches=got)
+        del model_gpu, out_gpu
+
+        # (b) the bf16 raw-sensor agent: compute_trajectory at B=1, forward at B=16. A 6-pose
+        # agent's compute_trajectory raises in both packages (it builds NAVSIM's 8-pose
+        # `Trajectory`): the nuScenes agent is called through `forward` at B=1 too
+        navsim = cfg.num_poses == 8
+        agent, _ = agent_entry(dev, torch.bfloat16, seed=0, num_points=1024, config=cfg, trajectory_head_type=head)
+        rows = {}
+        with torch.no_grad():
+            for batch, iters in VARIANT_ITERS.items():
+                features = batches[batch]
+                before = counted()
+                tensors = agent.features_to_device(features)
+                for _ in range(2):
+                    out = agent.predict(tensors)
+                _variant_outputs_ok(name, out, batch, cfg)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    out = agent.predict(tensors)
+                torch.cuda.synchronize()
+                dev_s = (time.perf_counter() - t0) / iters
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    if batch == 1 and navsim:
+                        traj = agent.compute_trajectory(raw_inputs[0])
+                    else:
+                        out_np = agent.forward(features)
+                e2e_s = (time.perf_counter() - t0) / iters
+                forwards = 2 + 2 * iters
+                got = delta(before)
+                if got != {"splat": forwards, "stem": 2 * forwards, **({"conv3x3": conv * forwards} if conv else {})}:
+                    raise AssertionError(f"variants_path {name} bf16 b{batch}: launches {got} over {forwards} "
+                                         f"forwards, want 1 splat, 2 stem, {conv} conv3x3 each")
+                for k, n in (("splat", 1), ("stem", 2), ("conv3x3", conv)):
+                    want[k] += n * forwards
+                if batch == 1 and navsim and (traj.poses.shape != (8, 3) or not np.isfinite(traj.poses).all()):
+                    raise AssertionError(f"variants_path {name}: compute_trajectory {traj.poses.shape}")
+                if batch == 16 or not navsim:
+                    _variant_outputs_ok(name, out_np, batch, cfg)
+                    if name == "diffusiondrive_nuscenes_agent":
+                        nuscenes_traj = out_np["trajectory"]
+                rows[batch] = dict(call="compute_trajectory" if batch == 1 and navsim else "forward",
+                                   frames_per_s_on_card=batch / dev_s, ms_per_call_on_card=dev_s * 1e3,
+                                   frames_per_s_with_copy=batch / e2e_s, ms_per_call_with_copy=e2e_s * 1e3,
+                                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                   launches_per_forward={k: v // forwards for k, v in got.items()})
+                log(f"variants_path {name} bf16 b{batch}", card=card, **rows[batch])
+        del agent
+
+        # (c) one float32 train step at B=2 (seed 5): card vs CPU, each also in float64
+        model = model_cpu.train()
+        tbatch, ts, tnoise = comparison_batch(model, cfg, 2, seed=5)
+        runs, seconds = {}, {}
+        for label, d, dtype in (("cpu_f32", cpu, torch.float32), ("card_f32", dev, torch.float32),
+                                ("cpu_f64", cpu, torch.float64), ("card_f64", dev, torch.float64)):
+            t0 = time.perf_counter()
+            runs[label] = train_step_on(model, cfg, tbatch, ts, tnoise, d, dtype, record=True)
+            seconds[label] = time.perf_counter() - t0
+            if d.type == "cuda":
+                if runs[label]["lap_launches"] != 1:
+                    raise AssertionError(f"variants_path {name} {label}: {runs[label]['lap_launches']} LAP launches")
+                want["lap"] += 1
+        lc, l64, lcard = (runs[k]["losses"] for k in ("cpu_f32", "cpu_f64", "card_f32"))
+        loss_err = {t: abs(lcard[t] - v) for t, v in lc.items()}
+        loss_err_f64 = {t: abs(lcard[t] - v) for t, v in l64.items()}
+        valid = torch.from_numpy(tbatch["agent_labels"]).bool()
+        matches = {k: [{int(j): i for i, j in enumerate(r["assignment"]["cols"][b].tolist()) if valid[b, j]}
+                       for b in range(len(valid))] for k, r in runs.items()}
+        margins = {k: [assignment_margin(r["assignment"]["cost"][b], r["assignment"]["cols"][b].long(), valid[b])
+                       for b in range(len(valid))] for k, r in runs.items()}
+        g64 = grad_distances(runs["card_f64"]["grads"], runs["cpu_f64"]["grads"])
+        g32 = {k: grad_distances(runs[k]["grads"], runs["cpu_f64"]["grads"]) for k in ("cpu_f32", "card_f32")}
+        worst64 = max(g64, key=g64.get)
+        log(f"variants_path {name} train f32 b2 seed 5 card-vs-cpu", card=card, losses_cpu=lc, losses_cpu_f64=l64,
+            loss_max_abs_err=loss_err, loss_max_abs_err_vs_cpu_f64=loss_err_f64, tol_rel=1e-3,
+            assignment_margin=margins, matched_as_cpu_f64={k: v == matches["cpu_f64"] for k, v in matches.items()},
+            grad_card_f64_worst=[worst64, g64[worst64]],
+            grad_rel_l2_vs_cpu_f64={k: _quantiles(v.values()) for k, v in g32.items()},
+            grad_worst_vs_cpu_f64={k: max(v.items(), key=lambda kv: kv[1]) for k, v in g32.items()},
+            params=len(g64), seconds=seconds)
+        for t, v in lc.items():
+            if not (loss_err[t] <= 1e-3 * max(1.0, abs(v)) and loss_err_f64[t] <= 1e-3 * max(1.0, abs(l64[t]))):
+                raise AssertionError(f"variants_path {name} train {t}: card {lcard[t]} vs CPU {v}, "
+                                     f"CPU float64 {l64[t]}")
+        if not g64[worst64] <= 1e-6:
+            raise AssertionError(f"variants_path {name} train f64 grad {worst64}: relative L2 {g64[worst64]}")
+        del runs, model, model_cpu
+
+        # (d) bf16 Trainer.fit: 2 steps at B=8 (and, for nuScenes, one switched step)
+        rng = np.random.default_rng(7)
+        fit_batches = [collate([example_training_sample(cfg, rng) for _ in range(VARIANT_TRAIN_B)]) for _ in range(2)]
+        fits = [("default", cfg, fit_batches, {"lap": 2})]
+        if cfg.image_architecture == "resnet50":
+            fits.append(("switched", dataclasses.replace(cfg, fused_attention_mode="on", fused_conv_mode="train"),
+                         fit_batches[:1], {"lap": 1, "attention_fwd": 6, "attention_bwd": 6}))
+        for label, fcfg, fb, expect in fits:
+            trainer = Trainer(build_model(fcfg, torch.bfloat16, seed=0, trajectory_head_type=head).to(dev), fcfg,
+                              OptimizerConfig(epochs=1, warmup_epochs=1, steps_per_epoch=len(fb)), seed=0)
+            before = counted()
+            t0 = time.perf_counter()
+            trainer.fit(lambda epoch: fb, 1)
+            got = delta(before)
+            fit_s = time.perf_counter() - t0
+            metrics = trainer.last_train_metrics
+            if got != expect or not metrics or not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"variants_path {name} fit {label}: launches {got} (want {expect}), "
+                                     f"metrics {metrics}")
+            for k, n in got.items():
+                want[k] += n
+            log(f"variants_path {name} fit bf16 b{VARIANT_TRAIN_B} {label}", card=card, steps=len(fb),
+                wall_s=fit_s, ms_per_step_with_first=fit_s / len(fb) * 1e3, launches=got, train_metrics=metrics)
+            del trainer
+        torch.cuda.empty_cache()
+        summary[name] = {"wall_s": time.perf_counter() - t_var, "fps_b1_with_copy": rows[1]["frames_per_s_with_copy"],
+                         "fps_b16_with_copy": rows[16]["frames_per_s_with_copy"]}
+
+    # (e) run_pdm_score with the MLP and UNet agents on cli_path's logs and caches
+    import logging
+
+    errors = _runner_helpers()[2]()
+    logging.getLogger().addHandler(errors)
+    data = [f"navsim_log_path={cli_root / 'data' / 'logs'}", f"sensor_blobs_path={cli_root / 'data' / 'blobs'}",
+            f"split={cli_root / 'split.yaml'}"]
+    for name, agent_args in (("transfuser_agent", ["agent=transfuser_agent"]),
+                             ("diffusion_policy_agent", ["agent=diffusiondrive_agent", "agent.name=diffusion_policy_agent"])):
+        before = counted()
+        t0 = time.perf_counter()
+        csv_path = run_pdm_score.main(["--config", "default_evaluation", *agent_args, "agent.preprocess_on_device=true",
+                                       *data, f"metric_cache_path={cli_root / 'metric_cache'}",
+                                       f"output_dir={cli_root / ('run_pdm_score_' + name)}", "batch_size=32"])
+        got = delta(before)
+        wall = time.perf_counter() - t0
+        with open(csv_path, newline="") as fp:
+            rows_csv = list(csv.reader(fp))
+        if len(rows_csv) != 18 or not all(r[2] == "True" for r in rows_csv[1:]):
+            raise AssertionError(f"variants_path run_pdm_score {name}: rows {rows_csv}")
+        if got != {"splat": 1, "stem": 2, "conv3x3": 12} or errors.records:
+            raise AssertionError(f"variants_path run_pdm_score {name}: launches {got}, errors {errors.records[:3]}")
+        for k, n in got.items():
+            want[k] += n
+        log(f"variants_path run_pdm_score {name}", card=card, wall_s=wall, rows=len(rows_csv) - 2,
+            mean_score=float(rows_csv[-1][-1]), launches=got)
+
+    # (g) run_training (scene-backed, bf16, 1 epoch) of each variant on cli_path's logs;
+    # the nuScenes agent's builders write their own cache (6-pose targets)
+    import diffusiondrive_torch.common.dataclasses as scene_types
+    from diffusiondrive_torch.script import run_training
+
+    maps_root, scene_types.NUPLAN_MAPS_ROOT = scene_types.NUPLAN_MAPS_ROOT, str(cli_root / "maps")
+    steps = 16 // VARIANT_TRAIN_B
+    try:
+        for name, agent_args, cache in (
+                ("transfuser_agent", ["agent=transfuser_agent"], "training_cache"),
+                ("diffusion_policy_agent", ["agent=diffusiondrive_agent", "agent.name=diffusion_policy_agent"],
+                 "training_cache"),
+                ("diffusiondrive_nuscenes_agent", ["agent=diffusiondrive_nuscenes_agent"], "training_cache_nuscenes")):
+            out = cli_root / f"run_training_{name}"
+            before = counted()
+            t0 = time.perf_counter()
+            run_training.main(["--config", "default_training", *agent_args, *data, f"cache_path={cli_root / cache}",
+                               f"output_dir={out}", "epochs=1", f"batch_size={VARIANT_TRAIN_B}"])
+            got = delta(before)
+            wall = time.perf_counter() - t0
+            train_rows = [json.loads(r) for r in (out / "metrics.jsonl").read_text().splitlines()]
+            if (len(train_rows) != steps or not all(np.isfinite(r["loss"]) for r in train_rows)
+                    or got != {"lap": steps} or not (out / "epoch_0000" / "state.pt").exists() or errors.records):
+                raise AssertionError(f"variants_path run_training {name}: rows {train_rows}, launches {got}, "
+                                     f"errors {errors.records[:3]}")
+            want["lap"] += steps
+            log(f"variants_path run_training {name}", card=card, wall_s=wall, steps=steps, cache=cache,
+                losses=[r["loss"] for r in train_rows], launches=got)
+    finally:
+        scene_types.NUPLAN_MAPS_ROOT = maps_root
+        logging.getLogger().removeHandler(errors)
+
+    # (f) nuScenes metrics on the card over the nuScenes agent's 6-pose outputs
+    rng = np.random.default_rng(11)
+    n, T = nuscenes_traj.shape[:2]
+    gt = np.concatenate([nuscenes_traj[..., :2] + rng.normal(0, 1.0, (n, T, 2)), nuscenes_traj[..., 2:]],
+                        -1).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(-20, 20, (n, T, 8, 2)), rng.uniform(-np.pi, np.pi, (n, T, 8, 1)),
+                            rng.uniform(3.5, 5.0, (n, T, 8, 1)), rng.uniform(1.6, 2.2, (n, T, 8, 1))],
+                           -1).astype(np.float32)
+    valid = rng.uniform(size=(n, T, 8)) < 0.5
+    metrics = evaluate_nuscenes(nuscenes_traj, gt, boxes, valid)
+    metrics_cpu = evaluate_nuscenes(nuscenes_traj, gt, boxes, valid, device="cpu")
+    err = max(abs(metrics[k] - metrics_cpu[k]) for k in metrics_cpu)
+    if set(metrics) != set(metrics_cpu) or not err <= 1e-6 or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"variants_path evaluate_nuscenes: card {metrics} vs CPU {metrics_cpu}")
+    log("variants_path evaluate_nuscenes", card=card, scenes=n, poses=T, metrics=metrics, max_abs_err_vs_cpu=err)
+
+    counts = counted()
+    if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"variants_path: launches {counts}, counted step by step {want}")
+    log("variants_path launches", card=card, phase_s=time.perf_counter() - phase_t0, variants=summary, **counts)
+    return counts
+
+
 LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
 
 
@@ -2674,10 +3008,10 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["ddp_path"],
+    parser.add_argument("--only", choices=["ddp_path", "variants_path"],
                         help="run the device line, the build, cli_path and this phase only, and print no "
                              "kernels line (ddp_path over every visible card: NCCL ranks a card, device "
-                             "lists of every card)")
+                             "lists of every card; variants_path: the registry's other model variants)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2690,10 +3024,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device().splitlines()[0]
     build_logs = phase_build()
-    if args.only == "ddp_path":
+    if args.only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
             phase_cli_path(dev, card, Path(cli_root))
-            phase_ddp_path(dev, card, Path(cli_root))
+            {"ddp_path": phase_ddp_path, "variants_path": phase_variants_path}[args.only](dev, card, Path(cli_root))
         log("chip_smoke wall", total_s=time.perf_counter() - _T0)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -2708,6 +3042,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
         counts["cli_path"] = phase_cli_path(dev, card, Path(cli_root))
         counts["ddp_path"] = phase_ddp_path(dev, card, Path(cli_root))
+        counts["variants_path"] = phase_variants_path(dev, card, Path(cli_root))
 
     bf = torch.bfloat16
     kernels = []
@@ -2745,6 +3080,11 @@ def main() -> int:
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "path")} for label in ("image", "lidar") for part in ("fwd", "dx")}
     kernels[2]["rows"] = {" ".join(map(str, k[1:])): {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
                           for k, v in summary.items() if k[0] == "lidar_splat"}
+    for entry in kernels[4:6]:   # ResNet-50's stage 3, beside the four ResNet-34 stages summed above
+        entry["resnet50_d256"] = {f"{variant} {str(dt).split('.')[1]}": {
+            f: summary[(entry["name"], 256, variant, dt)][f] for f in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "path", "max_abs_err")}
+            for variant in ("no_mask", "masked") for dt in (bf, torch.float32)}
     kernels[3]["rows"] = {f"b{k[1]}": {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                                                          "critical_steps", "ns_per_step")}
                           for k, v in summary.items() if k[0] == "lap"}

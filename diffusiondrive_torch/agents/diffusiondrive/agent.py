@@ -11,9 +11,12 @@ directory written by the port's `Trainer` (`use_ema` picks its EMA
 weights). The training interface (target builder, loss, optimiser,
 callbacks) is that of the JAX agent.
 
-The diffusion noise is drawn from a per-device generator re-seeded to 7 on
-each call: repeatable, as the JAX agent's fixed `PRNGKey(7)` is, but a
-different draw by construction.
+`trajectory_head_type` ("diffusion", "unet" or "mlp") picks the model's
+head, as in JAX. The head's noise (`draw_noise`: the diffusion head's
+(B, modes, poses, 2), the UNet's (B, poses, 3), none for the MLP) is drawn
+from a per-device generator re-seeded to 7 on each call: repeatable, as
+the JAX agent's fixed `PRNGKey(7)` is, but a different draw by
+construction.
 
 `set_mesh(devices)` is the counterpart of the JAX agent's: the forward's
 rows are split over the list, a replica of the model on each device (its
@@ -69,12 +72,14 @@ class DiffusionDriveAgent(AbstractAgent):
     requires_scene = False
 
     def __init__(self, config: Optional[TransfuserConfig] = None, lr: float = 6e-4,
-                 checkpoint_path: Optional[str] = None, dtype: torch.dtype = torch.bfloat16,
+                 checkpoint_path: Optional[str] = None, trajectory_head_type: str = "diffusion",
+                 dtype: torch.dtype = torch.bfloat16,
                  seed: int = 0, preprocess_on_device: bool = False, use_ema: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         self._config = config or TransfuserConfig()
         self._lr = lr
         self._checkpoint_path = checkpoint_path
+        self.trajectory_head_type = trajectory_head_type
         self._dtype = dtype
         self._seed = seed
         self._preprocess_on_device = preprocess_on_device
@@ -101,17 +106,18 @@ class DiffusionDriveAgent(AbstractAgent):
         cfg = self._config
         path = self._checkpoint_path
         if path and Path(path).suffix in _TORCH_CHECKPOINTS:
-            model = DiffusionDriveModel(cfg, dtype=self._dtype)
+            model = DiffusionDriveModel(cfg, self.trajectory_head_type, dtype=self._dtype)
             model.load_state_dict(load_transfuser_state_dict(path, model), strict=True)
             model.eval()
         elif path:
-            model = DiffusionDriveModel(cfg, dtype=self._dtype)
+            model = DiffusionDriveModel(cfg, self.trajectory_head_type, dtype=self._dtype)
             payload = load_checkpoint(path, torch.device("cpu"))
             model.load_state_dict(checkpoint_state_dict(payload, self._use_ema), strict=True)
             model.eval()
         else:
-            model = build_model(cfg, self._dtype, seed=self._seed)
-        if cfg.plan_anchor_path and Path(cfg.plan_anchor_path).exists():
+            model = build_model(cfg, self._dtype, seed=self._seed, trajectory_head_type=self.trajectory_head_type)
+        # only the diffusion head has anchors
+        if cfg.plan_anchor_path and Path(cfg.plan_anchor_path).exists() and self.trajectory_head_type == "diffusion":
             anchors = torch.from_numpy(np.load(cfg.plan_anchor_path).astype(np.float32))
             with torch.no_grad():
                 model.trajectory_head.plan_anchor.copy_(anchors)
@@ -156,24 +162,26 @@ class DiffusionDriveAgent(AbstractAgent):
     def predict(self, tensors: Mapping[str, torch.Tensor],
                 diffusion_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The eval forward on device tensors; outputs stay on the device.
-        `diffusion_noise` (B, modes, poses, 2) fixes the trajectory head's
-        draw, else it is drawn for the whole batch from the generator
-        re-seeded to 7. The rows are split over the device list of
-        `set_mesh` (default: the agent's device): each device's replica
-        preprocesses and runs its rows, and the outputs are gathered on the
-        first device."""
+        `diffusion_noise` (the head's noise: (B, modes, poses, 2) for the
+        diffusion head, (B, poses, 3) for the UNet) fixes the trajectory
+        head's draw, else it is drawn for the whole batch from the generator
+        re-seeded to 7 (the MLP head draws nothing). The rows are split over
+        the device list of `set_mesh` (default: the agent's device): each
+        device's replica preprocesses and runs its rows, and the outputs are
+        gathered on the first device."""
         self.initialize()
         mesh = self._mesh or [self.device]
         if diffusion_noise is None:
             diffusion_noise = self.model.trajectory_head.draw_noise(len(tensors["status_feature"]),
                                                                     self._generator.manual_seed(_NOISE_SEED))
-        chunks = split_rows({**tensors, "noise": diffusion_noise}, mesh)
+        noise = {} if diffusion_noise is None else {"noise": diffusion_noise}
+        chunks = split_rows({**tensors, **noise}, mesh)
         outs = []
         with torch.no_grad():
             for dev, model, chunk in zip(mesh, replicas(self.model, mesh, self._replicas), chunks):
                 with device_scope(dev):
                     camera, lidar = self.preprocess(chunk)
-                    outs.append(model(camera, lidar, chunk["status_feature"], diffusion_noise=chunk["noise"]))
+                    outs.append(model(camera, lidar, chunk["status_feature"], diffusion_noise=chunk.get("noise")))
         return gather_rows(outs)
 
     def forward(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -6,13 +6,15 @@ a name and a kwargs dict (a composed config group). The names are JAX's
 
 - `constant_velocity_agent`, `human_agent` and `ego_status_mlp_agent` build
   the port's agents;
-- `diffusiondrive_agent` and `diffusiondrive_vanilla_ddim_agent` (the
-  20-step DDIM ablation, `diffusion_test_steps=20`) build the port's
-  `DiffusionDriveAgent`: a `config` mapping becomes a `TransfuserConfig`, a
-  YAML `dtype` string ("bfloat16", "float32") a torch dtype;
-- `transfuser_agent` (the MLP head, ROADMAP item 19), `diffusion_policy_agent`
-  (the UNet head, item 16) and `diffusiondrive_nuscenes_agent` (ResNet-50,
-  item 19) are registered and raise `NotImplementedError` naming their item.
+- `diffusiondrive_agent` builds the port's `DiffusionDriveAgent`: a
+  `config` mapping becomes a `TransfuserConfig`, a YAML `dtype` string
+  ("bfloat16", "float32") a torch dtype, `trajectory_head_type` ("diffusion",
+  "unet", "mlp") passes through; the others are it with JAX's settings:
+  `transfuser_agent` (the Transfuser baseline's MLP head),
+  `diffusion_policy_agent` (the diffusion-policy UNet head),
+  `diffusiondrive_vanilla_ddim_agent` (the 20-step DDIM ablation,
+  `diffusion_test_steps=20`) and `diffusiondrive_nuscenes_agent` (ResNet-50
+  encoders, 6 poses at 0.5 s, where the config leaves them unset).
 
 `device=` passes through to the agents that own a model; the others run on
 the host and take none. A checkpoint the port cannot read (an orbax
@@ -63,13 +65,6 @@ def check_checkpoint(path: Optional[str]) -> None:
         raise ValueError(f"checkpoint {path} {ORBAX_NOT_READ}")
 
 
-def _not_ported(name: str, item: int, what: str):
-    def factory(**kwargs):
-        raise NotImplementedError(f"agent {name!r}: {what} is not ported yet (ROADMAP item {item})")
-
-    return factory
-
-
 def _host_agent(cls):
     """A host-only agent: `device` is accepted and unused."""
 
@@ -99,11 +94,6 @@ def _ensure_builtins() -> None:
         from diffusiondrive_torch.models.config import TransfuserConfig
 
         config_kwargs = kwargs.pop("config", {}) or {}
-        head = kwargs.pop("trajectory_head_type", "diffusion")
-        if head != "diffusion":
-            item, what = {"mlp": (19, "the MLP trajectory head"), "unet": (16, "the UNet trajectory head")}.get(
-                head, (19, f"trajectory head {head!r}"))
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
         if isinstance(kwargs.get("dtype"), str):
             # YAML configs name the compute dtype as a string ("bfloat16",
             # "float32"); parameters stay float32 either way (mixed precision)
@@ -111,20 +101,36 @@ def _ensure_builtins() -> None:
         check_checkpoint(kwargs.get("checkpoint_path"))
         return DiffusionDriveAgent(config=TransfuserConfig(**config_kwargs), **kwargs)
 
+    def _transfuser(**kwargs):
+        return _diffusiondrive(trajectory_head_type="mlp", **kwargs)
+
     def _vanilla_ddim(**kwargs):
         # ablation: 20-step full DDIM rollout (vs the 2-step truncated one)
         config_kwargs = dict(kwargs.pop("config", {}) or {})
         config_kwargs.setdefault("diffusion_test_steps", 20)
         return _diffusiondrive(config=config_kwargs, **kwargs)
 
+    def _diffusiondrive_nuscenes(**kwargs):
+        # nuScenes variant: ResNet-50 encoders, 6-pose horizon at 0.5 s
+        from diffusiondrive_torch.common.dataclasses import TrajectorySampling
+
+        config_kwargs = dict(kwargs.pop("config", {}) or {})
+        config_kwargs.setdefault("image_architecture", "resnet50")
+        config_kwargs.setdefault("lidar_architecture", "resnet50")
+        config_kwargs.setdefault("trajectory_sampling", TrajectorySampling(time_horizon=3, interval_length=0.5))
+        return _diffusiondrive(config=config_kwargs, **kwargs)
+
+    def _diffusion_policy(**kwargs):
+        # ablation: the diffusion-policy UNet head, full-range training noise,
+        # 20-step DDIM from pure noise
+        return _diffusiondrive(trajectory_head_type="unet", **kwargs)
+
     _AGENTS.setdefault("ego_status_mlp_agent", _ego_status_mlp)
     _AGENTS.setdefault("diffusiondrive_agent", _diffusiondrive)
-    _AGENTS.setdefault("transfuser_agent", _not_ported("transfuser_agent", 19, "the MLP trajectory head"))
-    _AGENTS.setdefault("diffusion_policy_agent", _not_ported("diffusion_policy_agent", 16,
-                                                             "the UNet trajectory head"))
+    _AGENTS.setdefault("transfuser_agent", _transfuser)
+    _AGENTS.setdefault("diffusion_policy_agent", _diffusion_policy)
     _AGENTS.setdefault("diffusiondrive_vanilla_ddim_agent", _vanilla_ddim)
-    _AGENTS.setdefault("diffusiondrive_nuscenes_agent", _not_ported("diffusiondrive_nuscenes_agent", 19,
-                                                                    "the ResNet-50 encoders"))
+    _AGENTS.setdefault("diffusiondrive_nuscenes_agent", _diffusiondrive_nuscenes)
 
 
 def agent_from_config(agent_cfg: Dict[str, Any], device: Optional[str] = None):

@@ -7,7 +7,10 @@ in eval mode with seeded random weights, plus example inputs, on CUDA unless
 `__graft_entry__.entry()`. `agent_entry()` builds the
 `DiffusionDriveAgent` that preprocesses the raw sensors on the device, plus a
 seeded `AgentInput` (`example_agent_input`), for
-``agent.compute_trajectory(agent_input)``. `example_training_sample` and
+``agent.compute_trajectory(agent_input)``. Both take a `config` and a
+`trajectory_head_type`, so every model variant of the registry is driven
+through them (`VARIANTS`: the Transfuser baseline's MLP head, the
+diffusion-policy UNet, the ResNet-50 nuScenes model). `example_training_sample` and
 `write_example_cache` make seeded feature/target pairs and a training cache
 of them (the format `training/dataset.py` reads) for the training path;
 `place_targets_at_predictions` makes a batch's detection assignment unique
@@ -39,15 +42,29 @@ from diffusiondrive_torch.models.layers import disable_dropout, flax_default_ini
 from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 
 
+# the registry's model variants beyond `diffusiondrive_agent`
+VARIANTS = ("diffusion_policy_agent", "diffusiondrive_nuscenes_agent", "transfuser_agent")
+
+
+def variant_config(name: str, **overrides) -> Tuple[str, TransfuserConfig]:
+    """(trajectory head type, config) of the registry's DiffusionDrive agent
+    `name` (one of `VARIANTS` or "diffusiondrive_agent"), as the registry
+    builds it with `overrides` as its `config` mapping."""
+    from diffusiondrive_torch.config.registry import build_agent
+
+    agent = build_agent(name, config=overrides, device="cpu")
+    return agent.trajectory_head_type, agent.config
+
+
 def build_model(config: Optional[TransfuserConfig] = None, dtype: torch.dtype = torch.float32,
-                seed: int = 0) -> DiffusionDriveModel:
+                seed: int = 0, trajectory_head_type: str = "diffusion") -> DiffusionDriveModel:
     """The planner on the CPU in eval mode, weights drawn from `seed`.
 
     The BatchNorm statistics are drawn too (mean ~ N(0, 0.3), var ~
     U(0.7, 1.5)), so that folding them into the kernels' affine is exercised.
     """
     gen = torch.Generator().manual_seed(seed)
-    model = DiffusionDriveModel(config or TransfuserConfig(), dtype=dtype)
+    model = DiffusionDriveModel(config or TransfuserConfig(), trajectory_head_type, dtype=dtype)
     flax_default_init_(model, gen)
     with torch.no_grad():
         for m in model.modules():
@@ -71,15 +88,17 @@ def example_inputs(config: TransfuserConfig, batch: int, device: torch.device,
 
 
 def entry(device: Optional[Union[str, torch.device]] = None, dtype: torch.dtype = torch.bfloat16,
-          batch: int = 1, seed: int = 0) -> Tuple[DiffusionDriveModel, Dict[str, torch.Tensor]]:
-    """(model, example inputs) for the planner forward, on CUDA by default.
+          batch: int = 1, seed: int = 0, config: Optional[TransfuserConfig] = None,
+          trajectory_head_type: str = "diffusion") -> Tuple[DiffusionDriveModel, Dict[str, torch.Tensor]]:
+    """(model, example inputs) for the planner forward, on CUDA by default;
+    `config` defaults to `TransfuserConfig()` (see `variant_config`).
 
     Raises without a GPU unless `device="cpu"` is passed. Call as
     ``with torch.no_grad(): model(**inputs)``.
     """
     device = resolve_device(device)
-    config = TransfuserConfig()
-    model = build_model(config, dtype=dtype, seed=seed).to(device)
+    config = config or TransfuserConfig()
+    model = build_model(config, dtype=dtype, seed=seed, trajectory_head_type=trajectory_head_type).to(device)
     return model, example_inputs(config, batch, device, seed=seed + 1)
 
 
@@ -139,18 +158,20 @@ def example_agent_input(config: Optional[TransfuserConfig] = None, seed: int = 0
 
 
 def agent_entry(device: Optional[Union[str, torch.device]] = None,
-                dtype: torch.dtype = torch.bfloat16, seed: int = 0, num_points: int = 131072):
+                dtype: torch.dtype = torch.bfloat16, seed: int = 0, num_points: int = 131072,
+                config: Optional[TransfuserConfig] = None, trajectory_head_type: str = "diffusion"):
     """(agent, agent_input) for the raw-sensor agent path, on CUDA by default.
 
     The agent is the full-width `DiffusionDriveAgent(preprocess_on_device=True)`
+    (of `config`, default `TransfuserConfig()`, and `trajectory_head_type`)
     with seeded weights, initialized; call ``agent.compute_trajectory(agent_input)``
     or ``agent.forward(features)``. Raises without a GPU unless `device="cpu"`.
     """
     from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
 
-    config = TransfuserConfig()
-    agent = DiffusionDriveAgent(config, dtype=dtype, seed=seed, preprocess_on_device=True,
-                                device=device)
+    config = config or TransfuserConfig()
+    agent = DiffusionDriveAgent(config, trajectory_head_type=trajectory_head_type, dtype=dtype, seed=seed,
+                                preprocess_on_device=True, device=device)
     agent.initialize()
     return agent, example_agent_input(config, seed=seed + 1, num_points=num_points)
 
@@ -212,20 +233,54 @@ def place_targets_at_predictions(batch: Dict[str, np.ndarray], pred_states: np.n
     detection assignments cost the same; a last-bit difference between two
     runs (another device, another package) then picks another one and the
     losses differ. With every target next to its own prediction the optimal
-    assignment is unique, so such runs can be compared.
+    assignment is mostly unique, so such runs can be compared; but the
+    classification cost may still send a valid target to another
+    prediction than its own, and the L1 cost of two such matches is again
+    separable, so `comparison_batch` also checks the margin.
     """
     perm = np.stack([rng.permutation(pred_states.shape[1]) for _ in range(pred_states.shape[0])])
     moved = np.take_along_axis(pred_states, perm[..., None], 1) + rng.normal(0.0, 0.1, pred_states.shape)
     return {**batch, "agent_states": moved.astype(np.float32)}
 
 
+# the least margin (`assignment_margin`, in cost units) of a comparison
+# batch's detection assignment: above what float32 rounding moves the costs
+# between two runs (their boxes differ by up to ~1.5e-2 m: PERF.md §6)
+MIN_ASSIGNMENT_MARGIN = 0.05
+PLACEMENT_TRIES = 20
+
+
+def _placement_margin(placed: Dict[str, np.ndarray], b: int, pred: torch.Tensor, logits: torch.Tensor,
+                      config: TransfuserConfig) -> float:
+    """Row `b`'s `assignment_margin` on the detection cost of the float32
+    predictions `pred` and `logits` against the `placed` targets, as the
+    loss computes it."""
+    from diffusiondrive_torch.ops.hungarian import linear_sum_assignment_plain
+    from diffusiondrive_torch.training.losses import _ce_cost, _l1_cost
+
+    valid = torch.from_numpy(placed["agent_labels"][b:b + 1]).float()
+    cost = (config.agent_class_weight * _ce_cost(valid, logits[b:b + 1])
+            + config.agent_box_weight * _l1_cost(torch.from_numpy(placed["agent_states"][b:b + 1]),
+                                                 pred[b:b + 1], valid))
+    cols = linear_sum_assignment_plain(cost)[0].long()
+    return assignment_margin(cost[0], cols, valid[0].bool())
+
+
 def comparison_batch(model: DiffusionDriveModel, config: TransfuserConfig, batch_size: int,
-                     seed: int) -> Tuple[Dict[str, np.ndarray], torch.Tensor, torch.Tensor]:
+                     seed: int) -> Tuple[Dict[str, np.ndarray], Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(batch, timesteps, noise) for comparing train steps of `model`:
-    seeded `example_training_sample`s and diffusion draws, with the agent
+    seeded `example_training_sample`s and the head's draws (timesteps in
+    [0, `train_max_t`), noise of `noise_shape` a row; None, None for the
+    MLP head, which draws nothing), with the agent
     targets placed at the model's own predictions for those draws
     (`place_targets_at_predictions`, a float32 training forward on the CPU
-    with dropout off), so the detection assignment is unique.
+    with dropout off), so the detection assignment is unique: a row whose
+    optimal assignment beats every other by less than
+    `MIN_ASSIGNMENT_MARGIN` is placed again (another permutation and
+    noise), up to `PLACEMENT_TRIES` times, else this raises. Where two
+    assignments cost the same but for rounding, two runs may take either,
+    and their box losses, over all five box values where the cost reads
+    only the centres, then differ (PERF.md §6).
 
     The camera comes normalised to float32 on the host, so every device
     reads the same input: on the card the model's own ``x / 255`` of a
@@ -237,15 +292,28 @@ def comparison_batch(model: DiffusionDriveModel, config: TransfuserConfig, batch
     rng = np.random.default_rng(seed)
     batch = collate([example_training_sample(config, rng) for _ in range(batch_size)])
     batch["camera_feature"] = batch["camera_feature"].astype(np.float32) / np.float32(255.0)
-    timesteps = torch.from_numpy(rng.integers(0, config.diffusion_train_max_t, batch_size))
-    noise = torch.from_numpy(rng.normal(size=(batch_size, config.ego_fut_mode, config.num_poses, 2))
-                             .astype(np.float32))
+    head = model.trajectory_head
+    timesteps = noise = None
+    if head.noise_shape is not None:
+        timesteps = torch.from_numpy(rng.integers(0, head.train_max_t, batch_size))
+        noise = torch.from_numpy(rng.normal(size=(batch_size, *head.noise_shape)).astype(np.float32))
     probe = copy.deepcopy(model).cpu().train()
     disable_dropout(probe)
     with torch.no_grad():
-        pred = probe(*(torch.from_numpy(batch[k]) for k in ("camera_feature", "lidar_feature", "status_feature")),
-                     timesteps=timesteps, diffusion_noise=noise)["agent_states"].numpy()
-    return place_targets_at_predictions(batch, pred, rng), timesteps, noise
+        out = probe(*(torch.from_numpy(batch[k]) for k in ("camera_feature", "lidar_feature", "status_feature")),
+                    targets={"trajectory": torch.from_numpy(batch["trajectory"])}, timesteps=timesteps,
+                    diffusion_noise=noise)
+    pred, logits = out["agent_states"], out["agent_labels"]
+    placed = place_targets_at_predictions(batch, pred.numpy(), rng)
+    for b in range(batch_size):
+        for _ in range(PLACEMENT_TRIES):
+            if _placement_margin(placed, b, pred, logits, config) >= MIN_ASSIGNMENT_MARGIN:
+                break
+            placed["agent_states"][b] = place_targets_at_predictions({}, pred[b:b + 1].numpy(), rng)["agent_states"][0]
+        else:
+            raise RuntimeError(f"comparison_batch: row {b} has no placement with a unique detection assignment "
+                               f"in {PLACEMENT_TRIES} tries")
+    return placed, timesteps, noise
 
 
 def _record_outputs(model: torch.nn.Module, store: Dict[str, List[torch.Tensor]], size: int = 4096):
@@ -258,6 +326,60 @@ def _record_outputs(model: torch.nn.Module, store: Dict[str, List[torch.Tensor]]
 
     return [m.register_forward_hook(lambda mod, a, o, n=name: hook(mod, a, o, n))
             for name, m in model.named_modules() if name]
+
+
+@contextlib.contextmanager
+def _recording_assignments(store: List[Tuple[torch.Tensor, torch.Tensor]]):
+    """The detection loss's two solvers wrapped to keep each call's float32
+    cost and assignment (on the CPU) in `store`."""
+    from diffusiondrive_torch.training import losses
+
+    kept = (losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain)
+
+    def keeping(solve):
+        def solve_and_keep(cost):
+            cols = solve(cost)
+            store.append((cost.cpu(), cols.cpu()))
+            return cols
+        return solve_and_keep
+
+    losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain = map(keeping, kept)
+    try:
+        yield
+    finally:
+        losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain = kept
+
+
+def assignment_margin(cost: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor) -> float:
+    """How much more one row's optimal assignment `cols` of the (n, n) cost
+    costs once any one of its edges to a valid target is forbidden: 0 where
+    the optimum is not unique, so that rounding may pick another (the plain
+    solver, in float64)."""
+    from diffusiondrive_torch.ops.hungarian import linear_sum_assignment_plain
+
+    cost = cost.double()
+    rows = torch.arange(cost.shape[0])
+    best = cost[rows, cols].sum()
+    margin = float("inf")
+    for i, j in zip(rows.tolist(), cols.tolist()):
+        if valid[j]:
+            forced = cost.clone()
+            forced[i, j] = 1e12
+            again = linear_sum_assignment_plain(forced[None])[0].long()
+            margin = min(margin, (forced[rows, again].sum() - best).item())
+    return margin
+
+
+def box_loss_move_bound(run: dict, ref: dict, valid: torch.Tensor, config: TransfuserConfig) -> float:
+    """The most the weighted box loss of the step `run` can lie from that
+    of the step `ref` when both take `ref`'s assignment: the sum, over the
+    predictions `ref` matched to valid targets, of |box - `ref`'s box| (all
+    five values), over the valid count (triangle inequality on the loss's
+    L1). `run` and `ref` come from `train_step_on(record=True)`."""
+    boxes, ref_boxes = run["assignment"]["agent_states"], ref["assignment"]["agent_states"]
+    matched = valid.double().gather(1, ref["assignment"]["cols"].long())
+    moved = ((boxes - ref_boxes).abs().sum(-1) * matched).sum().item()
+    return config.agent_box_weight * moved / max(valid.sum().item(), 1.0)
 
 
 def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: Dict[str, np.ndarray],
@@ -273,7 +395,10 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
     Returns the loss terms, every parameter's gradient and the BatchNorm
     running statistics after the step (float64, on the CPU), the number of
     LAP launches the step made and, with `record`, a sample of every
-    module's forward output (`_record_outputs`). With `kinks`, the step runs
+    module's forward output (`_record_outputs`) and, under "assignment",
+    the detection loss's float32 cost (B, n, n), its assignment `cols` (B,
+    n) and the predicted boxes `agent_states` (B, n, 5, float64). With
+    `kinks`, the step runs
     under it (`Kinks`: records, compares or imposes the side taken at each
     ReLU, |x| and max-pool).
     """
@@ -282,22 +407,29 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
 
     device = torch.device(device)
     if dtype == torch.float64:
-        m = DiffusionDriveModel(config, dtype=torch.float64)
+        m = DiffusionDriveModel(config, model.trajectory_head_type, dtype=torch.float64)
         m.load_state_dict(model.state_dict())
         m = m.to(device, torch.float64)
     else:
         m = copy.deepcopy(model).to(device)
     disable_dropout(m)
     store: Dict[str, List[torch.Tensor]] = {}
+    solved: List[Tuple[torch.Tensor, torch.Tensor]] = []
     handles = (_record_outputs(m, store) if record else []) + (kinks.attach(m) if kinks is not None else [])
+    boxes: List[torch.Tensor] = []
+    if record:
+        handles.append(m.agent_head.register_forward_hook(
+            lambda mod, a, out: boxes.append(out["agent_states"].detach().double().cpu())))
     state = create_train_state(m, OptimizerConfig())
     lap0 = batched_linear_sum_assignment.launches
     cudnn_was = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = cudnn
     try:
-        with kinks if kinks is not None else contextlib.nullcontext():
+        with kinks if kinks is not None else contextlib.nullcontext(), \
+                _recording_assignments(solved) if record else contextlib.nullcontext():
             losses = train_step(state, config, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
-                                timesteps=timesteps.to(device), noise=noise.to(device))
+                                timesteps=None if timesteps is None else timesteps.to(device),
+                                noise=None if noise is None else noise.to(device))
     finally:
         torch.backends.cudnn.enabled = cudnn_was
         for h in handles:
@@ -305,7 +437,9 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
     return {"losses": {k: v.item() for k, v in losses.items()},
             "grads": {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
             "stats": {k: b.detach().double().cpu() for k, b in m.named_buffers() if "running" in k},
-            "lap_launches": batched_linear_sum_assignment.launches - lap0, "outputs": store}
+            "lap_launches": batched_linear_sum_assignment.launches - lap0, "outputs": store,
+            **({"assignment": {"cost": solved[0][0], "cols": solved[0][1], "agent_states": boxes[0]}}
+               if solved else {})}
 
 
 _RELU = (F.relu, torch.relu, torch.Tensor.relu)

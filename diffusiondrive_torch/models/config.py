@@ -102,7 +102,8 @@ class TransfuserConfig:
     diffusion_test_steps: int = 2
     diffusion_test_span: int = 20
 
-    # Vanilla diffusion-policy ablation head (not ported yet)
+    # Vanilla diffusion-policy ablation head (trajectory_head_type="unet"):
+    # full-range training noise + 20-step DDIM from pure noise at test time.
     unet_down_dims: Tuple[int, ...] = (256, 512, 1024)
     unet_test_steps: int = 20
 

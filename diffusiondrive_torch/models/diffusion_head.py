@@ -1,4 +1,7 @@
-"""Truncated-diffusion trajectory head (counterpart of `diffusiondrive_tpu/models/diffusion_head.py`).
+"""The diffusion trajectory heads (counterpart of `diffusiondrive_tpu/models/diffusion_head.py`).
+
+`DiffusionTrajectoryHead` is DiffusionDrive's truncated-diffusion head;
+`UnetTrajectoryHead` the vanilla diffusion-policy ablation (below).
 
 Train (`forward_train`): the plan anchors are noised at a random
 t in [0, 50), clamped in normalised space, denormalised, sine-embedded and
@@ -55,11 +58,23 @@ def denorm_odo(x: torch.Tensor) -> torch.Tensor:
     return (x + 1.0) / 2.0 * scale - off
 
 
-def default_plan_anchors() -> np.ndarray:
-    """The default (20, 8, 2) plan anchors shipped with the package: k-means
-    centroids of synthetic driving rollouts, the same asset as the JAX
-    package's."""
-    return np.load(Path(__file__).parent.parent / "assets" / "default_plan_anchors.npy").astype(np.float32)
+@functools.lru_cache(maxsize=None)
+def _kmeans_anchors(num_modes: int, num_poses: int) -> np.ndarray:
+    from diffusiondrive_torch.utils.anchors import kmeans_plan_anchors, synthetic_driving_trajectories
+
+    return kmeans_plan_anchors(synthetic_driving_trajectories(num_poses=num_poses), num_modes)
+
+
+def default_plan_anchors(num_modes: int = 20, num_poses: int = 8) -> np.ndarray:
+    """Default (num_modes, num_poses, 2) plan anchors, as the JAX package
+    makes them: the shipped (20, 8) asset (the JAX package's file), else
+    k-means centroids of synthetic driving rollouts (`utils/anchors.py`,
+    numpy with fixed seeds: the JAX package's anchors bit for bit; computed
+    once a process per shape)."""
+    asset = Path(__file__).parent.parent / "assets" / "default_plan_anchors.npy"
+    if num_modes == 20 and num_poses == 8 and asset.exists():
+        return np.load(asset).astype(np.float32)
+    return _kmeans_anchors(num_modes, num_poses).copy()
 
 
 class GridSampleCrossBEVAttention(nn.Module):
@@ -163,11 +178,8 @@ class DiffusionTrajectoryHead(nn.Module):
         cfg = self.config = config
         d = cfg.tf_d_model
         self.scheduler = DDIMScheduler()
-        anchors = default_plan_anchors()
-        if anchors.shape != (cfg.ego_fut_mode, cfg.num_poses, 2):
-            raise ValueError(f"the shipped plan anchors are {anchors.shape}; config wants "
-                             f"{(cfg.ego_fut_mode, cfg.num_poses, 2)}: load anchors into `plan_anchor`")
-        self.register_buffer("plan_anchor", torch.from_numpy(anchors))
+        self.register_buffer("plan_anchor", torch.from_numpy(default_plan_anchors(cfg.ego_fut_mode,
+                                                                                  cfg.num_poses)))
         self.anchor_encoder_ln = LinearReluLn(cfg.num_poses * 64, d, 1, 1, dtype)
         self.anchor_encoder_out = Linear(d, d, dtype=dtype)
         self.time_fc1 = Linear(d, d * 4, dtype=dtype)
@@ -198,6 +210,16 @@ class DiffusionTrajectoryHead(nn.Module):
             points = poses_reg[..., :2].detach()
         return regs, clss
 
+    @property
+    def train_max_t(self) -> int:
+        """The training timesteps are drawn from [0, train_max_t)."""
+        return self.config.diffusion_train_max_t
+
+    @property
+    def noise_shape(self) -> Tuple[int, ...]:
+        """A row's noise: (M, P, 2), the anchors' shape."""
+        return tuple(self.plan_anchor.shape)
+
     def train_draws(self, batch: int, generator: Optional[torch.Generator] = None,
                     timesteps: Optional[torch.Tensor] = None,
                     noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,7 +229,7 @@ class DiffusionTrajectoryHead(nn.Module):
         training draws them for the global batch and gives each rank its
         rows, as a JAX step sharded over a mesh draws them."""
         if timesteps is None:
-            timesteps = torch.randint(0, self.config.diffusion_train_max_t, (batch,), generator=generator,
+            timesteps = torch.randint(0, self.train_max_t, (batch,), generator=generator,
                                       device=self.plan_anchor.device)
         if noise is None:
             noise = self.draw_noise(batch, generator)
@@ -284,3 +306,93 @@ class DiffusionTrajectoryHead(nn.Module):
         mode_idx = poses_cls.argmax(dim=-1)
         best = take_rows(poses_reg, mode_idx[:, None])[:, 0]
         return {"trajectory": best, "poses_reg": poses_reg, "poses_cls": poses_cls}
+
+
+class UnetTrajectoryHead(nn.Module):
+    """Vanilla diffusion-policy trajectory head (the 20-step DDIM ablation).
+
+    The normalised (x, y, heading) trajectory is denoised by
+    `ConditionalUnet1D` with sample-prediction DDIM, FiLM-conditioned on the
+    ego query and the status encoding.
+
+    Train (`forward_train`): the GT trajectory is noised at a timestep in
+    [0, 1000) and clamped; the UNet predicts the clean sample, returned
+    clamped and denormalised (the single-mode L1 loss reads it). Test
+    (`forward_test`): `unet_test_steps` DDIM steps ((950, 900, ..., 0) for
+    20) from standard normal noise of shape (B, P, 3). Both take their draws
+    as the diffusion head's do: `timesteps=`, `noise=`, else from
+    `generator` (`train_draws`, `draw_noise`; timesteps first).
+    """
+
+    def __init__(self, config: TransfuserConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from diffusiondrive_torch.models.conditional_unet1d import ConditionalUnet1D
+
+        cfg = self.config = config
+        self.scheduler = DDIMScheduler()
+        self.unet = ConditionalUnet1D(input_dim=3, global_cond_dim=2 * cfg.tf_d_model,
+                                      down_dims=tuple(cfg.unet_down_dims), dtype=dtype)
+
+    @property
+    def train_max_t(self) -> int:
+        """The training timesteps are drawn from [0, train_max_t)."""
+        return self.scheduler.num_train_timesteps
+
+    @property
+    def noise_shape(self) -> Tuple[int, ...]:
+        """A row's noise: (P, 3), one trajectory."""
+        return (self.config.num_poses, 3)
+
+    def _device(self) -> torch.device:
+        return self.unet.final_conv.weight.device
+
+    def draw_noise(self, batch: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, P, 3) standard normal noise for `batch` rows from `generator`
+        on the head's device (float32; float64 for a float64 head)."""
+        w = self.unet.final_conv.weight
+        return torch.randn((batch, *self.noise_shape), generator=generator, device=w.device,
+                           dtype=torch.promote_types(w.dtype, torch.float32))
+
+    def train_draws(self, batch: int, generator: Optional[torch.Generator] = None,
+                    timesteps: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(timesteps (B,) in [0, 1000), noise (B, P, 3)), each from
+        `generator` on the head's device unless given (timesteps first)."""
+        if timesteps is None:
+            timesteps = torch.randint(0, self.train_max_t, (batch,), generator=generator, device=self._device())
+        if noise is None:
+            noise = self.draw_noise(batch, generator)
+        return timesteps, noise
+
+    @staticmethod
+    def _cond(ego_query: torch.Tensor, status_encoding: torch.Tensor) -> torch.Tensor:
+        """(B, 1, d) ego query + (B, 1, d) status token -> (B, 2d) global cond."""
+        return torch.cat([ego_query[:, 0], status_encoding[:, 0].to(ego_query.dtype)], dim=-1)
+
+    def forward_train(self, ego_query: torch.Tensor, status_encoding: torch.Tensor,
+                      targets: Dict[str, torch.Tensor], timesteps: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        cond = self._cond(ego_query, status_encoding)
+        normed = norm_odo(targets["trajectory"])
+        timesteps, noise = self.train_draws(normed.shape[0], generator, timesteps, noise)
+        timesteps = timesteps.to(normed.device)
+        noisy = self.scheduler.add_noise(normed, noise.to(device=normed.device, dtype=normed.dtype),
+                                         timesteps).clamp(-1.0, 1.0)
+        pred = self.unet(noisy, timesteps, cond)
+        return {"trajectory": denorm_odo(pred.clamp(-1.0, 1.0))}
+
+    def forward_test(self, ego_query: torch.Tensor, status_encoding: torch.Tensor,
+                     noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        cond = self._cond(ego_query, status_encoding)
+        B = ego_query.shape[0]
+        img = self.draw_noise(B, generator) if noise is None else noise.to(ego_query.device)
+        steps = self.config.unet_test_steps
+        for k in self.scheduler.rollout_timesteps(steps):
+            t = torch.full((B,), k, dtype=torch.long, device=img.device)
+            pred = self.unet(img.clamp(-1.0, 1.0), t, cond)
+            # the update runs in the wider of the two types (float32 under bf16), as in JAX
+            pred = pred.to(torch.promote_types(pred.dtype, img.dtype))
+            img = self.scheduler.step(pred, k, img, num_inference_steps=steps)
+        return {"trajectory": denorm_odo(img.clamp(-1.0, 1.0))}

@@ -66,6 +66,78 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(d), self.weight.to(d), bias)
 
 
+class Conv1d(nn.Conv1d):
+    """`nn.Conv1d` over (B, C, T) with float32 parameters that computes in
+    `dtype` (Flax's 1-D `nn.Conv`, whose (k, in, out) kernel is this
+    module's (out, in, k) weight)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """`nn.ConvTranspose1d` over (B, C, T) with float32 parameters that
+    computes in `dtype`. Flax's ``nn.ConvTranspose((k,), strides=(s,),
+    padding=((k - 1 - p, k - 1 - p),))`` is this module with padding `p`;
+    its (k, in, out) kernel is this module's (in, out, k) weight with the
+    taps reversed (`utils/port_jax.py`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.conv_transpose1d(x.to(d), self.weight.to(d), self.bias.to(d), self.stride, self.padding)
+
+
+class GroupNorm(nn.Module):
+    """Flax `nn.GroupNorm(num_groups, epsilon)` over (B, C, T): per sample
+    and group, the mean and the variance E[x^2] - E[x]^2 (clamped at 0)
+    taken in float32 (float64 for float64 input), ``(x - mean) * (rsqrt(var
+    + eps) * scale) + bias`` in that type, the output in `dtype`."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_groups, self.eps, self.compute_dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        xf = x.to(stat_dtype(x))
+        g = xf.reshape(B, self.num_groups, C // self.num_groups, T)
+        mean = g.mean((2, 3))
+        var = torch.clamp_min((g * g).mean((2, 3)) - mean * mean, 0.0)
+        mean = mean.repeat_interleave(C // self.num_groups, 1)[:, :, None]
+        var = var.repeat_interleave(C // self.num_groups, 1)[:, :, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None].to(xf.dtype)
+        y = (xf - mean) * mul + self.bias[:, None].to(xf.dtype)
+        return y.to(self.compute_dtype)
+
+
+class Mlp(nn.Module):
+    """Linear -> activation -> Linear, Flax names fc1/fc2."""
+
+    def __init__(self, in_features: int, hidden: int, out: int, activation=F.relu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden, dtype=dtype)
+        self.fc2 = Linear(hidden, out, dtype=dtype)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.activation(self.fc1(x)))
+
+
 class LayerNorm(nn.LayerNorm):
     """Flax-convention LayerNorm: eps 1e-6, statistics in float32, output in `dtype`."""
 
@@ -287,12 +359,13 @@ def flax_default_init_(module: nn.Module, generator: Optional[torch.Generator] =
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-            if isinstance(owner, (nn.LayerNorm, nn.BatchNorm2d)):
+            if isinstance(owner, (nn.LayerNorm, nn.BatchNorm2d, GroupNorm)):
                 p.fill_(1.0 if leaf == "weight" else 0.0)
             elif leaf == "bias":
                 p.zero_()
             elif leaf == "weight":
-                fan_in = p[0].numel()
+                # a transposed conv's weight is (in, out, k): its fan-in is in * k
+                fan_in = p[:, 0].numel() if isinstance(owner, nn.ConvTranspose1d) else p[0].numel()
                 p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             else:  # pos_emb, keyval_embedding, query_embedding
                 p.normal_(0.0, 1.0, generator=generator)

@@ -18,7 +18,9 @@ mode takes the module path: `F.conv2d` (cuDNN on the card), BatchNorm with
 batch statistics (`layers.BatchNorm2d`), ReLU, pool; with "train" or "interpret" the two convs
 of each block where `supports_fused_conv3x3` holds run `conv3x3_train` instead (the conv3x3 kernel for the
 forward and the input gradient), BatchNorm, ReLU and the residual as before.
-BN eps is 1e-5.
+BN eps is 1e-5. A `Bottleneck` (ResNet-50) takes the module path in every
+mode, as JAX's does: its 3x3 conv never runs the conv3x3 kernel, even in
+layer 1 where the shape gate would pass (JAX fuses basic stages only).
 """
 
 from __future__ import annotations
@@ -33,11 +35,16 @@ from diffusiondrive_torch.ops.conv_fused import (
 from diffusiondrive_torch.ops.stem_fused import fused_stem, supports_fused_stem
 
 ARCH_SPECS = {
-    # name: (block, stage_sizes, stage_widths, out_channels). The Bottleneck
-    # variant (resnet50) is not ported yet.
+    # name: (block, stage_sizes, stage_widths, out_channels)
     "resnet18": ("basic", (2, 2, 2, 2), (64, 128, 256, 512), (64, 128, 256, 512)),
     "resnet34": ("basic", (3, 4, 6, 3), (64, 128, 256, 512), (64, 128, 256, 512)),
+    "resnet50": ("bottleneck", (3, 4, 6, 3), (64, 128, 256, 512), (256, 512, 1024, 2048)),
 }
+
+
+def feature_channels(name: str):
+    """Per-stage output channels at reductions (4, 8, 16, 32)."""
+    return ARCH_SPECS[name][3]
 
 
 def _channels_last(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -122,18 +129,48 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual.to(y.dtype))
 
 
+class Bottleneck(nn.Module):
+    """1x1-3x3-1x1 bottleneck (torchvision), `features` wide inside and
+    4 x `features` out, for the ResNet-50 variant. No kernel in any mode."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = features * 4
+        self.conv1 = Conv2d(in_features, features, 1, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(features, dtype)
+        self.conv2 = Conv2d(features, features, 3, stride=stride, padding=1, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm2d(features, dtype)
+        self.conv3 = Conv2d(features, out, 1, bias=False, dtype=dtype)
+        self.bn3 = BatchNorm2d(out, dtype)
+        self.has_downsample = in_features != out or stride != 1
+        if self.has_downsample:
+            self.downsample_conv = Conv2d(in_features, out, 1, stride=stride, bias=False, dtype=dtype)
+            self.downsample_bn = BatchNorm2d(out, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        return F.relu(y + residual.to(y.dtype))
+
+
 class ResNetStage(nn.Module):
-    """A stack of BasicBlocks block0..blockN-1; the first downsamples when `stride` > 1."""
+    """A stack of blocks block0..blockN-1 ("basic": `BasicBlock`,
+    "bottleneck": `Bottleneck`); the first downsamples when `stride` > 1."""
 
     def __init__(self, in_features: int, features: int, num_blocks: int, stride: int = 1,
                  block: str = "basic", dtype: torch.dtype = torch.float32, fused_mode: str = "auto"):
         super().__init__()
-        if block != "basic":
-            raise NotImplementedError(f"ResNet block {block!r} is not ported yet")
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"ResNet block {block!r} is not 'basic' or 'bottleneck'")
         self.num_blocks = num_blocks
+        out = features * 4 if block == "bottleneck" else features
         for i in range(num_blocks):
-            self.add_module(f"block{i}", BasicBlock(in_features if i == 0 else features, features,
-                                                    stride if i == 0 else 1, dtype, fused_mode))
+            cin, s = (in_features, stride) if i == 0 else (out, 1)
+            self.add_module(f"block{i}", BasicBlock(cin, features, s, dtype, fused_mode) if block == "basic"
+                            else Bottleneck(cin, features, s, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_blocks):

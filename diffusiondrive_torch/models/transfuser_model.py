@@ -3,7 +3,9 @@
 Pipeline: backbone(camera, lidar) -> 8x8x512 BEV memory + 64x64x64 FPN BEV
 -> 64 BEV tokens + 1 status token (+ learned keyval embedding) -> 3-layer
 transformer decoder over [1 ego query | 30 agent queries] -> BEV semantic
-head, agent box head and the truncated-diffusion trajectory head.
+head, agent box head and the trajectory head: the truncated-diffusion head
+("diffusion"), the diffusion-policy UNet ("unet") or the Transfuser
+baseline's MLP ("mlp"), each under the scope `trajectory_head`.
 
 Public tensors keep the JAX layout: NHWC camera (B, 256, 1024, 3) uint8 or
 float, NHWC lidar (B, 256, 256, C), status (B, 8); `bev_semantic_map` comes
@@ -11,9 +13,9 @@ back NHWC (B, 128, 256, 7). Inside, maps are NCHW in channels_last memory,
 so the permutes at the edges move no bytes.
 
 `model.train()` selects the training forward (batch-statistics BatchNorm
-on cuDNN convolutions, dropout live, the diffusion head's `forward_train`);
+on cuDNN convolutions, dropout live, the head's `forward_train`);
 `model.eval()` the planner forward (the fused stem and layer-1 kernels, the
-truncated DDIM rollout).
+head's `forward_test`: the truncated DDIM rollout, the UNet's full one).
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ import torch.nn.functional as F
 from diffusiondrive_torch.common.enums import BoundingBox2DIndex
 from diffusiondrive_torch.models.backbone import TransfuserBackbone
 from diffusiondrive_torch.models.config import TransfuserConfig
-from diffusiondrive_torch.models.diffusion_head import DiffusionTrajectoryHead
+from diffusiondrive_torch.models.diffusion_head import DiffusionTrajectoryHead, UnetTrajectoryHead
 from diffusiondrive_torch.models.layers import (
-    Conv2d, Linear, LinearReluLn, TransformerDecoder, set_dropout_generator)
+    Conv2d, Linear, LinearReluLn, Mlp, TransformerDecoder, set_dropout_generator)
+from diffusiondrive_torch.models.resnet import feature_channels
 from diffusiondrive_torch.ops.sampling import resize_bilinear
 
 
@@ -53,21 +56,54 @@ class AgentHead(nn.Module):
         return {"agent_states": agent_states, "agent_labels": self.label_fc(agent_queries)[..., 0]}
 
 
+class MLPTrajectoryHead(Mlp):
+    """Deterministic single-mode head of the Transfuser baseline: an `Mlp`
+    (fc1, ReLU, fc2) to (x, y) raw and heading tanh x pi. It draws nothing
+    (`train_draws` and `draw_noise` return None)."""
+
+    noise_shape = None
+
+    def __init__(self, config: TransfuserConfig, dtype: torch.dtype = torch.float32):
+        super().__init__(config.tf_d_model, config.tf_d_ffn, config.num_poses * 3, F.relu, dtype)
+        self.num_poses = config.num_poses
+
+    def train_draws(self, batch: int, generator: Optional[torch.Generator] = None,
+                    timesteps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        return None, None
+
+    def draw_noise(self, batch: int, generator: Optional[torch.Generator] = None) -> None:
+        return None
+
+    def forward(self, ego_query: torch.Tensor) -> Dict[str, torch.Tensor]:
+        poses = super().forward(ego_query).reshape(ego_query.shape[0], self.num_poses, 3)
+        heading = torch.tanh(poses[..., 2:3]) * math.pi
+        return {"trajectory": torch.cat([poses[..., :2], heading], dim=-1)}
+
+
+TRAJECTORY_HEADS = ("diffusion", "unet", "mlp")
+
+
 class DiffusionDriveModel(nn.Module):
-    """V2 Transfuser with the truncated-diffusion trajectory head.
+    """V2 Transfuser with a trajectory head of `trajectory_head_type`
+    ("diffusion", "unet" or "mlp", JAX's argument).
 
     `dtype` is the compute type (Flax's `dtype`); parameters and BatchNorm
     statistics stay float32.
     """
 
-    def __init__(self, config: TransfuserConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: TransfuserConfig, trajectory_head_type: str = "diffusion",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if trajectory_head_type not in TRAJECTORY_HEADS:
+            raise ValueError(f"trajectory_head_type {trajectory_head_type!r} not in {TRAJECTORY_HEADS}")
         cfg = self.config = config
+        self.trajectory_head_type = trajectory_head_type
         self.dtype = dtype
         d = cfg.tf_d_model
         bev_tokens = (cfg.lidar_resolution_height // 32) * (cfg.lidar_resolution_width // 32)
         self.backbone = TransfuserBackbone(cfg, dtype)
-        self.bev_downscale = Conv2d(512, d, 1, dtype=dtype)
+        # the last lidar stage's width: 512 for ResNet-18/34, 2048 for ResNet-50
+        self.bev_downscale = Conv2d(feature_channels(cfg.lidar_architecture)[3], d, 1, dtype=dtype)
         self.status_encoding = Linear(8, d, dtype=dtype)
         self.keyval_embedding = nn.Parameter(torch.zeros(bev_tokens + 1, d))
         self.bev_proj = LinearReluLn(d + cfg.bev_features_channels, d, 1, 1, dtype)
@@ -77,7 +113,9 @@ class DiffusionDriveModel(nn.Module):
         self.bev_semantic_conv1 = Conv2d(cfg.bev_features_channels, cfg.bev_features_channels, 3,
                                          padding=1, dtype=dtype)
         self.bev_semantic_conv2 = Conv2d(cfg.bev_features_channels, cfg.num_bev_classes, 1, dtype=dtype)
-        self.trajectory_head = DiffusionTrajectoryHead(cfg, dtype)
+        head = {"diffusion": DiffusionTrajectoryHead, "unet": UnetTrajectoryHead,
+                "mlp": MLPTrajectoryHead}[trajectory_head_type]
+        self.trajectory_head = head(cfg, dtype)
         self.agent_head = AgentHead(cfg, dtype)
 
     def forward(self, camera_feature: torch.Tensor, lidar_feature: torch.Tensor,
@@ -87,11 +125,13 @@ class DiffusionDriveModel(nn.Module):
                 timesteps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """camera (B, H, W, 3) uint8 or float, lidar (B, h, w, C), status (B, 8).
 
-        `diffusion_noise` (B, modes, poses, 2) fixes the trajectory head's
-        noise and, in train mode, `timesteps` (B,) its noising steps;
+        `diffusion_noise` (the head's `noise_shape` a row: (modes, poses, 2)
+        for the diffusion head, (poses, 3) for the UNet) fixes the trajectory
+        head's noise and, in train mode, `timesteps` (B,) its noising steps;
         otherwise they are drawn from `generator`, which in train mode also
-        feeds every dropout. `targets` is taken in train mode as the JAX
-        model takes it; the diffusion head does not read it.
+        feeds every dropout. The MLP head draws nothing. `targets` is taken
+        in train mode as the JAX model takes it; the UNet head reads its
+        `trajectory`, the others nothing.
         """
         cfg = self.config
         if self.training:
@@ -112,10 +152,13 @@ class DiffusionDriveModel(nn.Module):
         keyval = torch.cat([bev_tokens, status_encoding[:, None]], dim=1)
         keyval = keyval + self.keyval_embedding[None].to(keyval.dtype)
 
-        keyval_bev = keyval[:, :-1].transpose(1, 2).reshape(B, d, bh, bw)
-        keyval_bev = resize_bilinear(keyval_bev, bev_upscale.shape[2:])
-        cross_bev = torch.cat([keyval_bev, bev_upscale.to(keyval_bev.dtype)], dim=1)
-        cross_bev = self.bev_proj(cross_bev.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        if self.trajectory_head_type == "diffusion":
+            # the diffusion head's BEV memory; the other heads leave `bev_proj`
+            # unused (JAX computes it and drops it; its gradient is zero there)
+            keyval_bev = keyval[:, :-1].transpose(1, 2).reshape(B, d, bh, bw)
+            keyval_bev = resize_bilinear(keyval_bev, bev_upscale.shape[2:])
+            cross_bev = torch.cat([keyval_bev, bev_upscale.to(keyval_bev.dtype)], dim=1)
+            cross_bev = self.bev_proj(cross_bev.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
         query = self.query_embedding[None].expand(B, -1, -1).to(keyval.dtype)
         query_out = self.tf_decoder(query, keyval)
@@ -125,12 +168,19 @@ class DiffusionDriveModel(nn.Module):
         bev_semantic_map = resize_bilinear(sem, cfg.bev_semantic_frame).permute(0, 2, 3, 1)
 
         output: Dict[str, torch.Tensor] = {"bev_semantic_map": bev_semantic_map}
-        if self.training:
-            output.update(self.trajectory_head.forward_train(
-                ego_query, agents_query, cross_bev, timesteps=timesteps, noise=diffusion_noise,
-                generator=generator))
+        head = self.trajectory_head
+        if self.trajectory_head_type == "mlp":
+            output.update(head(ego_query))
+        elif self.trajectory_head_type == "unet":
+            status = status_encoding[:, None]
+            output.update(head.forward_train(ego_query, status, targets, timesteps=timesteps, noise=diffusion_noise,
+                                             generator=generator) if self.training else
+                          head.forward_test(ego_query, status, noise=diffusion_noise, generator=generator))
+        elif self.training:
+            output.update(head.forward_train(ego_query, agents_query, cross_bev, timesteps=timesteps,
+                                             noise=diffusion_noise, generator=generator))
         else:
-            output.update(self.trajectory_head.forward_test(
-                ego_query, agents_query, cross_bev, noise=diffusion_noise, generator=generator))
+            output.update(head.forward_test(ego_query, agents_query, cross_bev, noise=diffusion_noise,
+                                            generator=generator))
         output.update(self.agent_head(agents_query))
         return output

@@ -86,6 +86,13 @@ class DDIMScheduler:
         pred_sample_direction = float(np.sqrt(one - alpha_prod_t_prev)) * pred_epsilon
         return float(np.sqrt(alpha_prod_t_prev)) * pred_original_sample + pred_sample_direction
 
+    def rollout_timesteps(self, num_inference_steps: int) -> Tuple[int, ...]:
+        """The full DDIM schedule with "leading" spacing: descending
+        ``arange(n) * (T // n)``, e.g. (950, 900, ..., 50, 0) for 20 steps."""
+        step_ratio = self.num_train_timesteps // num_inference_steps
+        ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
+        return tuple(int(t) for t in ts)
+
     def truncated_rollout_timesteps(self, num_steps: int = 2, span: int = 20) -> Tuple[int, ...]:
         """Descending ``(arange(num_steps) * span/num_steps).round()``, e.g. (10, 0)."""
         ratio = span / num_steps

@@ -21,12 +21,16 @@ fused attention's forward and backward kernels, the conv3x3 kernel's
 forward and input-gradient launches (the first and second 12 of each
 step's 24, in stream order) and "conv3x3_train_grad_copy" (the gradient
 copied to channels_last, where autograd hands one over in another layout).
+`--variant` profiles another model variant of the registry
+(`entry.VARIANTS`: `transfuser_agent`, `diffusion_policy_agent`,
+`diffusiondrive_nuscenes_agent`) at full width in each of the three.
 Needs a CUDA device; there is no CPU fallback.
 
 Example (one GPU):
     python -m diffusiondrive_torch.script.run_profile --batch 16 --trace trace.json
     python -m diffusiondrive_torch.script.run_profile --batch 16 --agent
     python -m diffusiondrive_torch.script.run_profile --batch 64 --train
+    python -m diffusiondrive_torch.script.run_profile --batch 16 --agent --variant diffusion_policy_agent
 """
 
 from __future__ import annotations
@@ -76,12 +80,13 @@ def _ranged(fn, name: str):
     return wrapped
 
 
-def _agent_forward(batch: int):
+def _agent_forward(batch: int, variant: str):
     """(forward, model, extra component names) for the raw-sensor agent path."""
     from diffusiondrive_torch.agents.diffusiondrive import agent as agent_module
-    from diffusiondrive_torch.entry import agent_entry
+    from diffusiondrive_torch.entry import agent_entry, variant_config
 
-    agent, agent_input = agent_entry(dtype=torch.bfloat16)
+    head, cfg = variant_config(variant)
+    agent, agent_input = agent_entry(dtype=torch.bfloat16, config=cfg, trajectory_head_type=head)
     feats = agent.get_feature_builders()[0].compute_features(agent_input)
     tensors = agent.features_to_device({k: np.stack([v] * batch) for k, v in feats.items()})
     extra = ["stitch_cameras", "lidar_bev"]
@@ -90,18 +95,17 @@ def _agent_forward(batch: int):
     return (lambda: agent.predict(tensors)), agent.model, extra
 
 
-def _train_step(batch: int, fused: bool = False):
+def _train_step(batch: int, variant: str, fused: bool = False):
     """(step, component names) for the bf16 training step, with both kernel
     switches on when `fused`."""
     from diffusiondrive_torch.device import resolve_device
-    from diffusiondrive_torch.entry import build_model, example_training_sample
-    from diffusiondrive_torch.models.config import TransfuserConfig
+    from diffusiondrive_torch.entry import build_model, example_training_sample, variant_config
     from diffusiondrive_torch.training.dataset import collate
     from diffusiondrive_torch.training.train import OptimizerConfig, create_train_state, train_step
 
     switches = {"fused_conv_mode": "train", "fused_attention_mode": "on"} if fused else {}
-    cfg, dev = TransfuserConfig(**switches), resolve_device(None)
-    model = build_model(cfg, torch.bfloat16, seed=0).to(dev)
+    (head, cfg), dev = variant_config(variant, **switches), resolve_device(None)
+    model = build_model(cfg, torch.bfloat16, seed=0, trajectory_head_type=head).to(dev)
     state = create_train_state(model, OptimizerConfig())
     rng = np.random.default_rng(0)
     samples = collate([example_training_sample(cfg, rng) for _ in range(batch)])
@@ -180,21 +184,26 @@ def main() -> None:
                         help="profile the raw-sensor agent path, not the planner alone")
     parser.add_argument("--train", action="store_true",
                         help="profile the training step (forward, loss, LAP, backward, optimizer)")
+    parser.add_argument("--variant", default="diffusiondrive_agent",
+                        choices=["diffusiondrive_agent", "transfuser_agent", "diffusion_policy_agent",
+                                 "diffusiondrive_nuscenes_agent"],
+                        help="the registry agent whose model is profiled")
     args = parser.parse_args()
 
-    from diffusiondrive_torch.entry import entry
+    from diffusiondrive_torch.entry import entry, variant_config
 
     if not torch.cuda.is_available():
         raise SystemExit("run_profile: no CUDA device")
     if args.train:
         for fused in (False, True):
-            forward, components = _train_step(args.batch, fused)
+            forward, components = _train_step(args.batch, args.variant, fused)
             _profile("train_fused" if fused else "train", forward, components, args, train=True)
         return
     if args.agent:
-        forward, model, extra = _agent_forward(args.batch)
+        forward, model, extra = _agent_forward(args.batch, args.variant)
     else:
-        model, inputs = entry(dtype=torch.bfloat16, batch=args.batch)
+        head, cfg = variant_config(args.variant)
+        model, inputs = entry(dtype=torch.bfloat16, batch=args.batch, config=cfg, trajectory_head_type=head)
         gen = torch.Generator(device=inputs["status_feature"].device)
         forward, extra = (lambda: model(**inputs, generator=gen.manual_seed(0))), []
     _profile("agent" if args.agent else "planner", forward, _annotate(model, DEPTH) + extra, args, train=False)
@@ -245,7 +254,7 @@ def _profile(path: str, forward, components, args, train: bool) -> None:
             by_component[e.name][2] += e.time_range.elapsed_us() / 1e3 / n
 
     print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": "bfloat16", "batch": args.batch,
-                      "path": path, "forwards": n, "wall_ms_per_forward": wall_ms,
+                      "path": path, "variant": args.variant, "forwards": n, "wall_ms_per_forward": wall_ms,
                       "device_busy_ms_per_forward": busy_ms,
                       "device_idle_share": 1.0 - busy_ms / wall_ms,
                       "kernel_launches_per_forward": len(kernels) / n,

@@ -127,8 +127,9 @@ def _targets(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def make_loss_fn(model: nn.Module, config: TransfuserConfig) -> Callable:
     """The train-path loss: the training forward (the model must be in train
-    mode) and `transfuser_loss`. `timesteps` and `noise` fix the diffusion
-    head's draws; otherwise they, and every dropout, come from `generator`."""
+    mode) and `transfuser_loss`. `timesteps` and `noise` fix the trajectory
+    head's draws; otherwise they, and every dropout, come from `generator`.
+    The UNet and MLP heads' single trajectory takes the L1 loss, as in JAX."""
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                 timesteps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
@@ -160,6 +161,11 @@ def train_step(state: TrainState, config: TransfuserConfig, batch: Dict[str, tor
     loss, loss_dict = make_loss_fn(net, config)(batch, generator, timesteps, noise)
     with record_function("backward"):
         loss.backward()
+        # a parameter the forward did not use (`bev_proj` under the MLP and UNet
+        # heads) has a zero gradient in JAX: AdamW then still decays it
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     with record_function("optimizer"):
         if state.opt_cfg.grad_clip_norm is not None:
             clip_by_global_norm_(list(model.parameters()), state.opt_cfg.grad_clip_norm)

@@ -11,8 +11,9 @@ in each process of a `torch.distributed` group (one a card; `torchrun` or
 `parallel/distributed.py:launch`): when a group is initialized the model
 is wrapped in `DistributedDataParallel`, each rank is given its rows of
 every global batch (`training/dataset.py:batch_iterator(rank=,
-world_size=)`), the diffusion draws are made for the global batch and
-sliced (`DiffusionTrajectoryHead.train_draws`), validation metrics are
+world_size=)`), the trajectory head's draws are made for the global batch
+and sliced (its `train_draws` and `draw_noise`: the diffusion and UNet
+heads'; the MLP head draws nothing), validation metrics are
 averaged over the ranks, and rank 0 alone writes metrics and checkpoints,
 from the unwrapped model. Without a group nothing of this runs.
 
@@ -152,8 +153,10 @@ class Trainer:
             no_sync = ({"forward_sync_buffers": False}
                        if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
                        else {"broadcast_buffers": False})
+            # the MLP and UNet heads leave `bev_proj` unused in every step
+            unused = getattr(self.model, "trajectory_head_type", "diffusion") != "diffusion"
             self.state.ddp = DistributedDataParallel(self.model, device_ids=[self.device.index] if cuda else None,
-                                                     **no_sync)
+                                                     find_unused_parameters=unused, **no_sync)
 
     def step_generator(self, step: int) -> torch.Generator:
         """The device generator re-seeded for `step` from (seed + 1, step)."""
@@ -173,7 +176,7 @@ class Trainer:
         total = rows * self.world_size
         timesteps, noise = self.model.trajectory_head.train_draws(total, self.step_generator(step))
         mine = rank_rows(total, self.rank, self.world_size)
-        return timesteps[mine], noise[mine]
+        return tuple(None if t is None else t[mine] for t in (timesteps, noise))
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A numpy batch on the trainer's device. On CUDA the arrays are
@@ -285,7 +288,8 @@ class Trainer:
             if self.distributed:   # the noise of the global batch, this rank's rows (as one device draws it)
                 rows = len(tensors["status_feature"])
                 noise = self.model.trajectory_head.draw_noise(rows * self.world_size, self._generator.manual_seed(0))
-                noise = noise[rank_rows(rows * self.world_size, self.rank, self.world_size)]
+                if noise is not None:
+                    noise = noise[rank_rows(rows * self.world_size, self.rank, self.world_size)]
             for prefix, params in variants:
                 metrics = self._val_fn(tensors, self._generator.manual_seed(0), params, noise)
                 for k, v in metrics.items():

@@ -5,10 +5,13 @@ The port's modules carry the Flax scope names, so a Flax variable tree
 `DiffusionDriveModel.init` or an orbax checkpoint) maps onto the port's
 `state_dict` by a mechanical walk:
 
-- conv ``kernel`` HWIO -> ``weight`` OIHW; Dense ``kernel`` (in, out) ->
-  Linear ``weight`` (out, in); ``bias`` -> ``bias``;
-- BatchNorm / LayerNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
-  -> ``running_mean``/``running_var``;
+- conv ``kernel`` HWIO -> ``weight`` OIHW; 1-D conv ``kernel`` (k, in,
+  out) -> ``weight`` (out, in, k); a 1-D ``ConvTranspose`` kernel (k, in,
+  out) -> `nn.ConvTranspose1d` ``weight`` (in, out, k) with the taps
+  reversed (told apart by the port module it lands on); Dense ``kernel``
+  (in, out) -> Linear ``weight`` (out, in); ``bias`` -> ``bias``;
+- BatchNorm / LayerNorm / GroupNorm ``scale`` -> ``weight``; BatchNorm
+  ``mean``/``var`` -> ``running_mean``/``running_var``;
 - free parameters (``pos_emb``, ``keyval_embedding``, ``query_embedding``)
   and constants (``plan_anchor``) keep their names.
 
@@ -41,13 +44,20 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
             yield prefix + (key,), value
 
 
-def _convert(collection: str, path: Tuple[str, ...], leaf: Any) -> Tuple[str, torch.Tensor]:
+def _convert(collection: str, path: Tuple[str, ...], leaf: Any,
+             model: nn.Module) -> Tuple[str, torch.Tensor]:
     arr = torch.from_numpy(np.array(leaf, dtype=np.float32))
     *scope, name = path
     if collection == "params":
         if name == "kernel":
             if arr.dim() == 4:
                 arr = arr.permute(3, 2, 0, 1)
+            elif arr.dim() == 3:
+                owner = _module_at(model, scope)
+                if isinstance(owner, nn.ConvTranspose1d):
+                    arr = arr.permute(1, 2, 0).flip(-1)
+                else:
+                    arr = arr.permute(2, 1, 0)
             elif arr.dim() == 2:
                 arr = arr.t()
             else:
@@ -64,13 +74,21 @@ def _convert(collection: str, path: Tuple[str, ...], leaf: Any) -> Tuple[str, to
     return ".".join(scope + [name]), arr.contiguous()
 
 
+def _module_at(model: nn.Module, scope) -> nn.Module:
+    """The port module at a Flax scope (None where there is none)."""
+    try:
+        return model.get_submodule(".".join(scope))
+    except AttributeError:
+        return None
+
+
 def jax_to_state_dict(variables: Mapping[str, Mapping], model: nn.Module) -> Dict[str, torch.Tensor]:
     """Convert Flax `variables` into a complete `state_dict` for `model`; strict."""
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, leaf in _leaves(tree):
-            key, tensor = _convert(collection, path, leaf)
+            key, tensor = _convert(collection, path, leaf, model)
             if key not in target:
                 raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} has no port tensor {key!r}")
             if tuple(tensor.shape) != tuple(target[key].shape):
@@ -92,7 +110,7 @@ def jax_params_to_named(params: Mapping[str, Any], model: nn.Module) -> Dict[str
     target = dict(model.named_parameters())
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
-        key, tensor = _convert("params", path, leaf)
+        key, tensor = _convert("params", path, leaf, model)
         if key not in target:
             raise KeyError(f"Flax leaf params/{'/'.join(path)} has no port parameter {key!r}")
         if tuple(tensor.shape) != tuple(target[key].shape):

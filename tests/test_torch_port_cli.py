@@ -17,6 +17,7 @@ JAX package; each CLI raising without a card unless `--device cpu`.
 """
 
 import csv
+import dataclasses
 import pickle
 import subprocess
 import sys
@@ -132,12 +133,31 @@ def test_registry_names_and_the_agents_it_builds(tmp_path):
     from diffusiondrive_torch.agents.ego_status_mlp_agent import EgoStatusMLPAgent
 
     assert preg.available_agents() == jreg.available_agents()
-    for name, item in (("transfuser_agent", 19), ("diffusion_policy_agent", 16),
-                       ("diffusiondrive_nuscenes_agent", 19)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            preg.agent_from_config({"name": name, "config": {}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        preg.build_agent("diffusiondrive_agent", trajectory_head_type="unet", device="cpu")
+    # the model variants build as JAX's registry builds them (head, config) and run on the CPU
+    rng = np.random.default_rng(0)
+    for name, head in (("transfuser_agent", "mlp"), ("diffusion_policy_agent", "unet"),
+                       ("diffusiondrive_nuscenes_agent", "diffusion")):
+        cfg = dict(TINY_AGENT, **({"image_architecture": "resnet50", "lidar_architecture": "resnet50"}
+                                  if name == "diffusiondrive_nuscenes_agent" else {}))
+        jagent = jreg.agent_from_config({"name": name, "config": dict(cfg)})
+        agent = preg.agent_from_config({"name": name, "dtype": "float32", "config": dict(cfg)}, device="cpu")
+        assert isinstance(agent, DiffusionDriveAgent) and agent.trajectory_head_type == head
+        assert jagent.model.trajectory_head_type == head
+        jts, pts = jagent.config.trajectory_sampling, agent.config.trajectory_sampling
+        assert agent.config == dataclasses.replace(_port_config(jagent.config), trajectory_sampling=pts)
+        assert (pts.num_poses, pts.interval_length) == (jts.num_poses, jts.interval_length)
+        c = agent.config
+        features = {"camera_feature": rng.integers(0, 256, (2, c.camera_height, c.camera_width, 3), dtype=np.uint8),
+                    "lidar_feature": rng.uniform(size=(2, c.lidar_resolution_height, c.lidar_resolution_width,
+                                                       1)).astype(np.float32),
+                    "status_feature": rng.normal(size=(2, 8)).astype(np.float32)}
+        traj = agent.forward(features)["trajectory"]
+        assert traj.shape == (2, pts.num_poses, 3) and np.isfinite(traj).all()
+    assert preg.agent_from_config({"name": "diffusiondrive_nuscenes_agent", "config": {}},
+                                  device="cpu").config.num_poses == 6
+    unet = preg.build_agent("diffusiondrive_agent", trajectory_head_type="unet", device="cpu")
+    assert unet.trajectory_head_type == "unet" and unet.config == _port_config(jreg.build_agent(
+        "diffusiondrive_agent", trajectory_head_type="unet").config)
     with pytest.raises(KeyError):
         preg.build_agent("no_such_agent")
     assert isinstance(preg.agent_from_config({"name": "constant_velocity_agent"}, device="cpu"),

@@ -368,6 +368,67 @@ def test_cuda_train_step_matches_cpu(cuda_device):
         torch.testing.assert_close(runs[("cuda", f32)]["stats"][k], b, rtol=1e-4, atol=1e-4, msg=k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["diffusion_policy_agent", "diffusiondrive_nuscenes_agent", "transfuser_agent"])
+def test_cuda_variant_forward_and_train_step(cuda_device, name):
+    """Each registry variant (`entry.VARIANTS`) at a small width on the card:
+    the float32 eval forward with fixed noise against the CPU's within
+    1e-3 x max(1, |CPU|), launching 2 stem and, in the ResNet-18 layer 1,
+    8 conv3x3 kernels (ResNet-50's Bottleneck: 0, as in JAX); the bf16
+    forward finite with the same launches; one train step card vs CPU as
+    `test_cuda_train_step_matches_cpu` (1 LAP launch, float64 gradients
+    1e-6 relative L2), its float32 losses within 1e-3 x max(1, |CPU|) of
+    the CPU's float32 ones. The box term may move further: it is the L1 of
+    residuals of ~0.1 m against boxes of up to 32 m, so it carries each
+    box's float32 error whole. Its gate adds twice what the CPU float32
+    step's boxes allow it to move from float64
+    (`entry.box_loss_move_bound`), a card step held to the CPU's float32
+    accuracy. ResNet-50 at this width needs that: cuDNN's float32
+    convolutions leave the card's boxes 1.8x as far from float64 as the
+    CPU's, or the card's with cuDNN off (`script/run_kinks.py --variant
+    diffusiondrive_nuscenes_agent --small`, PERF.md §6)."""
+    from diffusiondrive_torch.entry import (
+        box_loss_move_bound, build_model, comparison_batch, grad_distances, train_step_on, variant_config)
+
+    small = dict(camera_height=64, camera_width=256, lidar_resolution_height=64, lidar_resolution_width=64,
+                 img_vert_anchors=2, img_horz_anchors=8, lidar_vert_anchors=2, lidar_horz_anchors=2,
+                 bev_pixel_height=32, bev_pixel_width=64, unet_down_dims=(32, 64))
+    r50 = name == "diffusiondrive_nuscenes_agent"
+    head, cfg = variant_config(name, **small, **({} if r50 else {"image_architecture": "resnet18",
+                                                                 "lidar_architecture": "resnet18"}))
+    model = build_model(cfg, seed=0, trajectory_head_type=head)
+    g = torch.Generator().manual_seed(1)
+    inputs = {"camera_feature": torch.randint(0, 256, (2, 64, 256, 3), generator=g, dtype=torch.uint8),
+              "lidar_feature": torch.rand(2, 64, 64, 1, generator=g), "status_feature": torch.randn(2, 8, generator=g)}
+    noise = model.trajectory_head.draw_noise(2, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(**inputs, diffusion_noise=noise)
+        for dtype in (torch.float32, torch.bfloat16):
+            card = build_model(cfg, dtype, seed=0, trajectory_head_type=head).to(cuda_device)
+            stem0, conv0 = fused_stem.launches, fused_conv3x3.launches
+            got = card(**{k: v.to(cuda_device) for k, v in inputs.items()},
+                       diffusion_noise=None if noise is None else noise.to(cuda_device))
+            torch.cuda.synchronize()
+            assert (fused_stem.launches - stem0, fused_conv3x3.launches - conv0) == (2, 0 if r50 else 8)
+            assert set(got) == set(want) and got["trajectory"].shape == (2, cfg.num_poses, 3)
+            for k, w in want.items():
+                assert torch.isfinite(got[k].float()).all(), k
+                if dtype == torch.float32:
+                    _close(got[k].cpu(), w, 1e-3, k)
+    model.train()
+    batch, ts, tnoise = comparison_batch(model, cfg, 2, seed=0)
+    runs = {(d.type, dt): train_step_on(model, cfg, batch, ts, tnoise, d, dt, record=True)
+            for d in (torch.device("cpu"), cuda_device) for dt in (torch.float32, torch.float64)}
+    assert runs[("cuda", torch.float32)]["lap_launches"] == 1
+    card64 = grad_distances(runs[("cuda", torch.float64)]["grads"], runs[("cpu", torch.float64)]["grads"])
+    assert max(card64.values()) <= 1e-6, max(card64.items(), key=lambda kv: kv[1])
+    cpu_move = box_loss_move_bound(runs[("cpu", torch.float32)], runs[("cpu", torch.float64)],
+                                   torch.from_numpy(batch["agent_labels"]).bool(), cfg)
+    for k, v in runs[("cpu", torch.float32)]["losses"].items():
+        limit = 1e-3 * max(1.0, abs(v)) + (2.0 * cpu_move if k == "agent_box_loss" else 0.0)
+        assert abs(runs[("cuda", torch.float32)]["losses"][k] - v) <= limit, (k, cpu_move)
+
+
 def _within_2_bf16_ulps(got, want, name):
     """`chip_smoke.py:check_bf16_ulps`: 2 bf16 ulps (2 * 2^-8) of max |want|."""
     err = (got.float() - want.float()).abs().max().item()

@@ -138,6 +138,50 @@ def test_ddp_step_on_two_ranks_equals_one_rank_and_fit_checkpoint_resumes(tmp_pa
         assert _rel(f0["val"][k], w) <= tol, (k, f0["val"][k], w)
 
 
+@pytest.mark.parametrize("head", ["mlp", "unet"])
+def test_ddp_step_of_the_mlp_and_unet_heads_on_two_ranks_equals_one_rank(tmp_path, head):
+    """The MLP and UNet heads under DDP (`find_unused_parameters`: their
+    steps leave `bev_proj` unused; the UNet's (B, P, 3) noise drawn for the
+    global batch and sliced per rank, the MLP drawing nothing): one float64
+    step with the default AdamW on 2 gloo ranks against 1 rank, at the
+    gates of the diffusion head's test above (loss terms 3e-6, the box
+    term 2e-3, BN statistics 1e-5, gradients 1e-6, parameters within 5 lr,
+    the same bits on both ranks), and the unused `bev_proj`, its gradient
+    zero, decayed to p (1 - lr wd) on every rank, as optax's AdamW decays
+    a parameter with a zero gradient."""
+    from diffusiondrive_torch.training.train import OptimizerConfig
+
+    cfg = _port_config(tiny_config())
+    batch = ranks.placed_batch(cfg, make_batch(4, seed=3), head)
+    counts = batch["agent_labels"].sum(1)
+    assert counts[:2].sum() != counts[2:].sum()
+    f64 = torch.float64
+    with ThreadPoolExecutor(1) as pool:
+        group = pool.submit(launch, ranks.head_rank, 2, args=(cfg, batch, f64, head), device="cpu",
+                            init_method=_file_store(tmp_path), timeout=SPAWN_TIMEOUT, threads=2)
+        one = ranks.adamw_step(cfg, batch, torch.device("cpu"), f64, head)
+        r0, r1 = group.result()
+
+    assert r0["metrics"] == r1["metrics"] and r0["digest"] == r1["digest"]
+    for key, want in one["metrics"].items():
+        tol = 2e-3 if key == "agent_box_loss" else 3e-6
+        assert _rel(r0["metrics"][key], want) <= tol, (key, r0["metrics"][key], want)
+    for k, want in one["stats"].items():
+        np.testing.assert_allclose(r0["stats"][k].numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * want.abs().max().item(),
+                                   err_msg=k)
+    lr = OptimizerConfig().lr / 3   # WarmupCosLR at step 0, 3 warm-up epochs
+    for k, want in one["params"].items():
+        assert (r0["params"][k] - want).abs().max().item() <= 5.0 * lr, k
+    norm, one_norm = (float(np.linalg.norm(list(r["grad_norms"].values()))) for r in (r0, one))
+    assert norm == pytest.approx(one_norm, rel=1e-6)
+    for k, want in one["grads"].items():
+        assert (r0["grads"][k] - want).norm().item() <= 1e-6 * max(want.norm().item(), 1e-3 * one_norm), k
+    assert r0["bev_proj"] and all(r0["grad_norms"][k] == 0.0 for k in r0["bev_proj"])
+    for r in (r0, r1, one):
+        for k, p in r["bev_proj_before"].items():
+            torch.testing.assert_close(r["bev_proj"][k], p * (1.0 - lr * 1e-4), rtol=1e-12, atol=0, msg=k)
+
+
 # --------------------------------------------------------------------------- #
 # (b) the two global reductions from two halves, against Flax and JAX
 # --------------------------------------------------------------------------- #

@@ -22,33 +22,35 @@ CLIP = 5000.0      # global-norm clip; the test step's unclipped norm is ~12500
 EMA = 0.9
 
 
-def comparison_model(cfg, dtype=torch.float32):
-    """The seeded model, its parameters perturbed by N(0, 0.05) (JAX's
-    test), dropout off; `dtype=torch.float64` computes in float64."""
+def comparison_model(cfg, dtype=torch.float32, head="diffusion"):
+    """The seeded model with the `head` trajectory head, its parameters
+    perturbed by N(0, 0.05) (JAX's test), dropout off;
+    `dtype=torch.float64` computes in float64."""
     from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, seed=0, trajectory_head_type=head)
     gen = torch.Generator().manual_seed(42)
     with torch.no_grad():
         for p in model.parameters():
             p.add_(PERTURB * torch.randn(p.shape, generator=gen))
     if dtype == torch.float64:
-        m64 = DiffusionDriveModel(cfg, dtype=torch.float64)
+        m64 = DiffusionDriveModel(cfg, head, dtype=torch.float64)
         m64.load_state_dict(model.state_dict())
         model = m64.to(torch.float64)
     disable_dropout(model)
     return model
 
 
-def placed_batch(cfg, batch):
+def placed_batch(cfg, batch, head="diffusion"):
     """`batch` with the agent targets at the model's own predictions for
     the trainer's step-0 draws (a unique detection assignment)."""
-    model = comparison_model(cfg).train()
+    model = comparison_model(cfg, head=head).train()
     trainer = Trainer(model, cfg, OptimizerConfig(), seed=0)
     timesteps, noise = model.trajectory_head.train_draws(len(batch["status_feature"]), trainer.step_generator(0))
     with torch.no_grad():
         pred = model(*(torch.from_numpy(batch[k]) for k in ("camera_feature", "lidar_feature", "status_feature")),
-                     timesteps=timesteps, diffusion_noise=noise)["agent_states"].numpy()
+                     targets={"trajectory": torch.from_numpy(batch["trajectory"])}, timesteps=timesteps,
+                     diffusion_noise=noise)["agent_states"].numpy()
     return place_targets_at_predictions(batch, pred, np.random.default_rng(0))
 
 
@@ -72,12 +74,12 @@ def sample(tensors):
     return out
 
 
-def sgd_step(cfg, batch, device, dtype=torch.float32):
+def sgd_step(cfg, batch, device, dtype=torch.float32, head="diffusion"):
     """One `Trainer` step with SGD (lr 1e-3), the clip and the EMA on this
     rank's rows of the global `batch`. Returns the loss terms, the BN
     running statistics, samples, norms and digests of the parameters and
     gradients after the step, and the EMA's digest."""
-    model = comparison_model(cfg, dtype).to(device)
+    model = comparison_model(cfg, dtype, head).to(device)
     trainer = Trainer(model, cfg, OptimizerConfig(grad_clip_norm=CLIP, ema_decay=EMA), seed=0)
     trainer.setup()
     trainer.state.optimizer = torch.optim.SGD(model.parameters(), lr=LR)
@@ -91,6 +93,26 @@ def sgd_step(cfg, batch, device, dtype=torch.float32):
             "params": sample(params), "grads": sample(grads),
             "grad_norms": {k: g.double().norm().item() for k, g in grads.items()},
             "digest": {"params": digest(params), "grads": digest(grads), "ema": digest(trainer.state.ema_params)}}
+
+
+def adamw_step(cfg, batch, device, dtype=torch.float32, head="diffusion"):
+    """One `Trainer` step with the default AdamW on this rank's rows of the
+    global `batch`. Returns the loss terms, the BN running statistics,
+    samples, norms and digests of the parameters and gradients after the
+    step, and the `bev_proj` parameters before and after it."""
+    model = comparison_model(cfg, dtype, head).to(device)
+    before = {k: p.detach().cpu().clone() for k, p in model.named_parameters() if k.startswith("bev_proj.")}
+    trainer = Trainer(model, cfg, OptimizerConfig(), seed=0)
+    rows = rank_rows(len(batch["status_feature"]), rank(), world_size())
+    trainer.fit(lambda epoch: [{k: v[rows] for k, v in batch.items()}], 1)
+    params = dict(model.named_parameters())
+    grads = {k: p.grad for k, p in params.items()}
+    return {"metrics": trainer.last_train_metrics,
+            "stats": {k: b.detach().double().cpu() for k, b in model.named_buffers() if "running" in k},
+            "params": sample(params), "grads": sample(grads),
+            "grad_norms": {k: g.double().norm().item() for k, g in grads.items()},
+            "digest": {"params": digest(params), "grads": digest(grads)},
+            "bev_proj_before": before, "bev_proj": {k: params[k].detach().cpu() for k in before}}
 
 
 def fit_with_checkpoint(cfg, samples, device, out_dir):
@@ -111,6 +133,11 @@ def fit_with_checkpoint(cfg, samples, device, out_dir):
     return {"params": digest(dict(model.named_parameters())), "steps": trainer.state.step,
             "train": trainer.last_train_metrics, "val": trainer.last_val_metrics,
             "dropout_draw": torch.rand(4, generator=trainer.rank_generator(0)).tolist()}
+
+
+def head_rank(rank_, world, device, cfg, batch, dtype, head):
+    """A rank of the MLP and UNet heads' DDP test: the AdamW step."""
+    return adamw_step(cfg, batch, device, dtype, head)
 
 
 def step_rank(rank_, world, device, cfg, batch, dtype):
