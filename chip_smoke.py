@@ -208,7 +208,25 @@ line per phase, then one JSON line per kernel summary, then the result:
                `Trainer.fit` (nuScenes also switched: 6 + 6 attention),
                `run_pdm_score` with the MLP and UNet agents on
                `cli_path`'s logs, `evaluate_nuscenes` card vs CPU; launch
-               counts throughout (conv3x3: 12 a forward, 0 for ResNet-50).
+               counts throughout (conv3x3: 12 a forward, 0 for ResNet-50);
+               the 20-step vanilla-DDIM agent (`diffusiondrive_vanilla_ddim_agent`)
+               through (a) and (b) only: its train step is the default
+               agent's (`diffusion_test_steps` is read by the eval rollout
+               alone), which `train_path` holds.
+9c. ``capability_path`` the port's `script/run_capability_loop.py` at its
+               defaults (`phase_capability_path`: 40 frames, B=8, 30 epochs,
+               lr 1e-3, human replay): `ok` (trained PDMS above untrained by
+               more than 0.1), PDMS, stage walls and launches by stage; each
+               kernel the loop reaches held against its plain version on the
+               inputs it gave the kernel; the splat at 64 bins on the loop's
+               held-out clouds, exact.
+9d. ``soak_path`` the port's `script/run_soak.py` at full width
+               (`phase_soak_path`: B=8 bf16, EMA, a checkpoint every 50
+               steps; `SOAK_STEPS_WHOLE` = 150 steps in the whole script, 200
+               with ``--only soak_path``):
+               `ok` (loss down, steady epochs, launches of an early and a
+               late step equal, flat memory, the last checkpoint restores);
+               the LAP held against its plain version on a step's costs.
 10. a ``chip_smoke wall`` line (the script's seconds), a
                ``{"kernels": [...]}`` line (the attention entries with
                their D = 256 rows under ``resnet50_d256``), then
@@ -217,7 +235,9 @@ line per phase, then one JSON line per kernel summary, then the result:
 ``python3 chip_smoke.py --only ddp_path`` runs phases 1, 2, 8 and 9 and
 the last line only: on a machine of several cards, the check of the
 data-parallel paths across them. ``--only variants_path`` runs phases 1,
-2, 8 and 9b and the last line.
+2, 8 and 9b and the last line; ``--only capability_path`` and ``--only
+soak_path`` run phases 1, 2 and that phase (the soak at its 200 steps) and
+the last line.
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -548,6 +568,18 @@ def splat_inputs(dev) -> dict:
     return {"example": example, "uniform": uniform}
 
 
+def splat_library(ix: torch.Tensor, iy: torch.Tensor, bins: int):
+    """The splat's library yardstick on the (B, N) bin indices: one
+    `scatter_add_` of ones into a (B*bins^2 + 1) buffer, skipped points into
+    the last (overflow) bucket, as `histogram2d_jax` does."""
+    B = ix.shape[0]
+    batch = torch.arange(B, device=ix.device)[:, None] * bins * bins
+    flat = torch.where(ix >= 0, batch + ix.long() * bins + iy.long(), B * bins * bins).flatten()
+    ones = torch.ones(flat.shape, device=ix.device)
+    buf = torch.zeros(B * bins * bins + 1, device=ix.device)
+    return lambda: buf.scatter_add_(0, flat, ones)
+
+
 def phase_lidar_splat(dev) -> dict:
     """The splat kernel at the agent path's batches (B=16, 1) against its
     plain version: exact, and the same bits in two runs; on the agent path's
@@ -568,13 +600,7 @@ def phase_lidar_splat(dev) -> dict:
                                      f"repeatable {torch.equal(got, again)}")
             if not torch.equal(want.cpu(), histogram2d_plain(bx.cpu(), by.cpu(), bins)):
                 raise AssertionError(f"lidar_splat {kind} B={B}: plain version differs between card and CPU")
-            # library yardstick: one scatter_add_ of ones into a (B*bins^2 + 1) buffer, skipped
-            # points into the last (overflow) bucket, as `histogram2d_jax` does
             ok = bx >= 0
-            batch = torch.arange(B, device=dev)[:, None] * bins * bins
-            flat = torch.where(ok, batch + bx.long() * bins + by.long(), B * bins * bins).flatten()
-            ones = torch.ones(flat.shape, device=dev)
-            buf = torch.zeros(B * bins * bins + 1, device=dev)
             nbytes = 8.0 * B * SPLAT_N + 4.0 * B * bins * bins
             bms, by_what = bound_ms(0.0, nbytes, torch.float32)
             plan = splat_plan(B, SPLAT_N, bins, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -583,7 +609,7 @@ def phase_lidar_splat(dev) -> dict:
                        hottest_bin=int(want.max().item()), max_abs_err=err, same_bits_twice=True,
                        **time_rows({"kernel_ms": lambda: histogram2d(bx, by, bins),
                                     "plain_ms": lambda: histogram2d_plain(bx, by, bins),
-                                    "library_ms": lambda: buf.scatter_add_(0, flat, ones)}),
+                                    "library_ms": splat_library(bx, by, bins)}),
                        bound_ms=bms, bound_by=by_what)
             label = f"b{B}" if kind == "example" else f"{kind} b{B}"
             log(f"kernel lidar_splat {label}", **row)
@@ -2306,6 +2332,9 @@ def phase_ddp_path(dev, card: str, cli_root: Path) -> dict:
 
 VARIANT_TRAIN_B = 8       # the bf16 `Trainer.fit` of each variant: 2 steps at this batch
 VARIANT_ITERS = {1: 5, 16: 3}   # timed agent calls at B=1 (compute_trajectory) and B=16 (forward)
+# variants that differ from `diffusiondrive_agent` in the eval rollout only (`diffusion_test_steps`):
+# their train step is the default agent's, which `train_path` holds; (c) and (d) skip them
+EVAL_ONLY_VARIANTS = ("diffusiondrive_vanilla_ddim_agent",)
 
 
 def _variant_outputs_ok(name: str, out: dict, batch: int, cfg) -> None:
@@ -2326,7 +2355,9 @@ def phase_variants_path(dev, card: str, cli_root: Path) -> dict:
     (`entry.VARIANTS`: `transfuser_agent`, the MLP head;
     `diffusion_policy_agent`, the diffusion-policy UNet with its 20-step
     DDIM; `diffusiondrive_nuscenes_agent`, ResNet-50 encoders, 6 poses,
-    k-means anchors) at full width, seeded weights, through the entry points:
+    k-means anchors; `diffusiondrive_vanilla_ddim_agent`, the default model
+    with a 20-step DDIM rollout, through (a) and (b) only, `EVAL_ONLY_VARIANTS`)
+    at full width, seeded weights, through the entry points:
 
     (a) float32 B=1 planner forward on the card against the CPU, the noise
         fixed (`MAIN_TOL` x max(1, |CPU|)): 2 stem and 12 conv3x3 launches
@@ -2476,6 +2507,12 @@ def phase_variants_path(dev, card: str, cli_root: Path) -> dict:
                 log(f"variants_path {name} bf16 b{batch}", card=card, **rows[batch])
         del agent
 
+        summary[name] = {"fps_b1_with_copy": rows[1]["frames_per_s_with_copy"],
+                         "fps_b16_with_copy": rows[16]["frames_per_s_with_copy"]}
+        if name in EVAL_ONLY_VARIANTS:   # its train step is the default agent's (train_path)
+            summary[name]["wall_s"] = time.perf_counter() - t_var
+            continue
+
         # (c) one float32 train step at B=2 (seed 5): card vs CPU, each also in float64
         model = model_cpu.train()
         tbatch, ts, tnoise = comparison_batch(model, cfg, 2, seed=5)
@@ -2540,8 +2577,7 @@ def phase_variants_path(dev, card: str, cli_root: Path) -> dict:
                 wall_s=fit_s, ms_per_step_with_first=fit_s / len(fb) * 1e3, launches=got, train_metrics=metrics)
             del trainer
         torch.cuda.empty_cache()
-        summary[name] = {"wall_s": time.perf_counter() - t_var, "fps_b1_with_copy": rows[1]["frames_per_s_with_copy"],
-                         "fps_b16_with_copy": rows[16]["frames_per_s_with_copy"]}
+        summary[name]["wall_s"] = time.perf_counter() - t_var
 
     # (e) run_pdm_score with the MLP and UNet agents on cli_path's logs and caches
     import logging
@@ -2625,6 +2661,221 @@ def phase_variants_path(dev, card: str, cli_root: Path) -> dict:
     return counts
 
 
+def hold_recorded_kernels(path: str, store: dict, card: str) -> dict:
+    """Each kernel's recorded inputs (`entry.recording_kernel_calls`) through
+    the kernel twice and its plain version: the LAP exact; the stem and
+    conv3x3 within `TOL` (bf16: and 2 bf16 ulps), the same bits twice; timed
+    beside the plain version (`time_rows`), the library yardstick (as in
+    `phase_kernels` and `phase_lap`: cuDNN's conv with the affine folded in,
+    then ReLU (+ residual) and pool; scipy on the host for the LAP) and the
+    bound. One row a (kernel, shape, dtype, residual), logged and returned
+    by key. The plain solver's calls ("lap_plain", past the kernel's
+    `MAX_N`) launch no kernel and are not held."""
+    from diffusiondrive_torch.ops.conv_fused import conv3x3_kernel, conv3x3_plain, fused_conv3x3
+    from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
+    from diffusiondrive_torch.ops.stem_fused import fused_stem, stem_kernel, stem_plain
+
+    kernels = {"stem": (fused_stem, stem_plain), "conv3x3": (fused_conv3x3, conv3x3_plain),
+               "lap": (batched_linear_sum_assignment, linear_sum_assignment_plain)}
+    rows = {}
+    for key, calls in sorted(store.items(), key=lambda kv: str(kv[0])):
+        kernel, shape, dtype_name, residual = key
+        if kernel not in kernels:
+            continue
+        fn, plain = kernels[kernel]
+        for i, (args, kwargs, _) in enumerate(calls):
+            got, again, want = fn(*args, **kwargs), fn(*args, **kwargs), plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            tag = f"{path} {kernel} {list(shape)} {dtype_name}{' residual' if residual else ''} call {i}"
+            x = args[0]
+            if kernel == "lap":
+                if not torch.equal(got, want) or not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: the kernel's assignment differs from the plain version's")
+                err, limit, ulps, kpath = 0.0, 0.0, None, "warp_redux"
+                B, n, _ = shape
+                flops, nbytes, bdtype = 0.0, 4.0 * B * n * n + 4.0 * B * n, torch.float32
+                times = time_rows({"kernel_ms": lambda: fn(*args, **kwargs)})
+                plain_t = time_rows({"plain_ms": lambda: plain(*args, **kwargs)}, iters=1, warmup=1)
+                times["host_behind"] += plain_t.pop("host_behind")
+                times.update(plain_t, library_ms=scipy_lap_ms(x))
+            else:
+                err, limit = check_close(tag, got, want, TOL[x.dtype])
+                ulps = check_bf16_ulps(tag, got, want) if x.dtype == torch.bfloat16 else None
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two calls gave different bits")
+                B, C, H, W = shape
+                esize, bdtype = x.element_size(), x.dtype
+                w, s, b = args[1:4]
+                wf = (w.permute(3, 2, 0, 1).float() * s.float()[:, None, None, None]).to(x.dtype)
+                bf = b.to(x.dtype)
+                if kernel == "stem":
+                    kpath = stem_kernel(x.dtype)
+                    flops = 2.0 * B * (H // 2) * (W // 2) * 64 * 49 * C
+                    nbytes = esize * (B * H * W * C + B * (H // 4) * (W // 4) * 64 + 49 * C * 64) + 2 * 64 * 4
+                    lib = lambda: F.max_pool2d(  # noqa: E731
+                        torch.relu_(F.conv2d(x, wf, bf, stride=2, padding=3)), 3, 2, 1)
+                else:
+                    kpath = conv3x3_kernel(x.dtype)
+                    flops = 2.0 * B * H * W * 64 * 576
+                    nbytes = esize * (B * H * W * 64 * (2 + residual) + 576 * 64) + 2 * 64 * 4
+                    res = kwargs.get("residual", args[4] if len(args) > 4 else None)
+                    if res is None:
+                        lib = lambda: torch.relu_(F.conv2d(x, wf, bf, padding=1))  # noqa: E731
+                    else:
+                        lib = lambda: torch.relu_(F.conv2d(x, wf, bf, padding=1).add_(res))  # noqa: E731
+                times = time_rows({"kernel_ms": lambda: fn(*args, **kwargs),
+                                   "plain_ms": lambda: plain(*args, **kwargs), "library_ms": lib})
+            bms, by = bound_ms(flops, nbytes, bdtype)
+            row = dict(card=card, kernel=kernel, shape=list(shape), dtype=dtype_name, residual=residual,
+                       path=kpath, max_abs_err=err, limit=limit, ulp_limit=ulps, same_bits_twice=True,
+                       **times, bound_ms=bms, bound_by=by)
+            log(f"{path} kernel {kernel} {list(shape)}{' residual' if residual else ''}", **row)
+            rows[(kernel, shape, dtype_name, residual, i)] = row
+    return rows
+
+
+CAPABILITY_BATCH = 8   # the loop's defaults: batches of 8 (training and scoring)
+
+
+def phase_capability_path(dev, card: str) -> tuple:
+    """The closed train->eval loop (`script/run_capability_loop.py`) at its
+    JAX defaults on the card: 40-frame synthetic logs at six speeds, the
+    dryrun-size model (ResNet-18 x2, 64x256 camera, 64x64 BEV) trained in
+    float32 for 30 epochs at B=8 (1 LAP a step), held-out metric caches by
+    PDM-Closed, then the untrained and trained bf16 agents and human replay
+    scored by the runner (2 stem and 8 conv3x3 a forward: ResNet-18's layer
+    1). Requires `ok` (trained PDMS above untrained by more than 0.1) and
+    each stage's launches as counted; logs PDMS, margin, stage walls. Each
+    kernel the loop reaches is then held against its plain version on the
+    inputs the loop gave it (`hold_recorded_kernels`). The splat is not on
+    the loop's path: its feature builder bins the lidar on the host
+    (`TransfuserFeatureBuilder`, the agent's default `preprocess_on_device=
+    False`, as JAX's loop); it is held here at the loop's 64 bins
+    (`pixels_per_meter=1`) on the held-out scenes' clouds, exact and the
+    same bits twice. Returns (launches, kernel rows)."""
+    from diffusiondrive_torch.common.dataclasses import CAMERA_NAMES, SceneFilter, SensorConfig
+    from diffusiondrive_torch.common.dataloader import SceneLoader
+    from diffusiondrive_torch.entry import recording_kernel_calls
+    from diffusiondrive_torch.ops import kernel_counters
+    from diffusiondrive_torch.ops.lidar_splat import _bin_indices, histogram2d, histogram2d_plain
+    from diffusiondrive_torch.ops.preprocessing import pad_point_cloud
+    from diffusiondrive_torch.script.run_capability_loop import HOLDOUT_SPEEDS, _tiny_config, run_capability_loop
+
+    fns = kernel_counters()
+    for f in fns.values():
+        f.launches = 0
+    phase_t0 = time.perf_counter()
+    store: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capability_") as out:
+        with recording_kernel_calls(store, keep=1):
+            results = run_capability_loop(Path(out), batch_size=CAPABILITY_BATCH, device=dev)
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in fns.items()}
+        cfg = _tiny_config()
+        holdout = [f"speed_{s:.0f}" for s in HOLDOUT_SPEEDS]
+        loader = SceneLoader(Path(out) / "data" / "logs", Path(out) / "data" / "blobs", SceneFilter(frame_interval=1),
+                             SensorConfig(**{c: False for c in CAMERA_NAMES}, lidar_pc=[3]), build_map_api=False)
+        tokens = [t for log_name, toks in loader.get_tokens_list_per_log().items() if log_name in holdout
+                  for t in toks][:CAPABILITY_BATCH]
+        clouds = [loader.get_agent_input_from_token(t).lidars[-1].lidar_pc for t in tokens]
+    log("capability_path pdms", card=card, untrained=results["untrained_pdms"], trained=results["trained_pdms"],
+        human_replay=results["human_replay_pdms"], margin=results["margin"], ok=results["ok"],
+        train_tokens=results["num_train_tokens"], holdout_tokens=results["num_holdout_tokens"],
+        epochs=results["num_epochs"], steps_per_epoch=results["steps_per_epoch"])
+    log("capability_path stages", card=card, stage_s=results["stage_s"], launches_by_stage=results["launches"],
+        wall_s=sum(results["stage_s"].values()))
+    if not results["ok"]:
+        raise AssertionError(f"capability_path: margin {results['margin']} <= 0.1: {results}")
+    forwards = -(-results["num_holdout_tokens"] // CAPABILITY_BATCH)   # runner batches of one scoring run
+    want = {"train": {"lap": results["num_epochs"] * results["steps_per_epoch"]},
+            "evaluate_untrained": {"stem": 2 * forwards, "conv3x3": 8 * forwards},
+            "evaluate_trained": {"stem": 2 * forwards, "conv3x3": 8 * forwards}}
+    got = {stage: v for stage, v in results["launches"].items() if v}
+    total = {k: sum(v.get(k, 0) for v in got.values()) for k in fns}
+    if got != want or {k: v for k, v in counts.items() if v} != {k: v for k, v in total.items() if v}:
+        raise AssertionError(f"capability_path: launches by stage {got}, want {want}; counters {counts}")
+
+    rows = hold_recorded_kernels("capability_path", store, card)
+    # the splat at the loop's 64 bins on its held-out clouds (B = the scoring batch)
+    n = max(c.shape[1] for c in clouds)
+    padded = [pad_point_cloud(c, n) for c in clouds]
+    points = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
+    valid = torch.from_numpy(np.stack([v for _, v in padded])).to(dev)
+    keep = valid & (points[..., 2] < cfg.max_height_lidar) & (points[..., 2] > cfg.lidar_split_height)
+    bins = cfg.lidar_resolution_width
+    ix, iy = _bin_indices(points[..., :2], keep, cfg.lidar_min_x, cfg.lidar_max_x, cfg.lidar_min_y,
+                          cfg.lidar_max_y, bins)
+    ix, iy = ix.contiguous(), iy.contiguous()
+    got_h, again, want_h = histogram2d(ix, iy, bins), histogram2d(ix, iy, bins), histogram2d_plain(ix, iy, bins)
+    torch.cuda.synchronize()
+    err = (got_h - want_h).abs().max().item()
+    if bins != 64 or err != 0 or not torch.equal(got_h, again):
+        raise AssertionError(f"capability_path splat at {bins} bins: max abs err {err} (must be 0), "
+                             f"repeatable {torch.equal(got_h, again)}")
+    B = len(clouds)
+    bms, by = bound_ms(0.0, 8.0 * B * n + 4.0 * B * bins * bins, torch.float32)
+    row = dict(card=card, shape=[B, n], bins=bins, cloud="capability loop held-out scenes", path="segments",
+               points_counted=int((ix >= 0).sum().item()), nonzero_bins=int((want_h > 0).sum().item()),
+               max_abs_err=err, same_bits_twice=True,
+               **time_rows({"kernel_ms": lambda: histogram2d(ix, iy, bins),
+                            "plain_ms": lambda: histogram2d_plain(ix, iy, bins),
+                            "library_ms": splat_library(ix, iy, bins)}),
+               bound_ms=bms, bound_by=by, launches_on_path=counts["splat"])
+    log("capability_path kernel lidar_splat bins64", **row)
+    rows[("lidar_splat", "capability bins64", B)] = row
+    log("capability_path launches", card=card, phase_s=time.perf_counter() - phase_t0,
+        **{k: v for k, v in counts.items() if v})
+    return {k: v for k, v in counts.items() if v}, rows
+
+
+SOAK_STEPS = 200         # run_soak's default; the whole script may run fewer (PERF.md says so)
+SOAK_EVERY = 50          # steps an epoch and a checkpoint
+SOAK_STEPS_WHOLE = 150   # the soak's depth in the whole script: 3 epochs (PERF.md), 200 under --only soak_path
+
+
+def phase_soak_path(dev, card: str, steps: int = SOAK_STEPS) -> tuple:
+    """The sustained-training soak (`script/run_soak.py`) at full width on
+    the card: B=8 bf16 steps with EMA 0.999 over a pool of 4 synthetic
+    batches moved to the card once, a checkpoint every `SOAK_EVERY` steps
+    (written under a temporary directory: each holds parameters, Adam and
+    EMA state, ~1 GB). Requires `ok` (one `metrics.jsonl` row a step, the
+    loss down, epochs 2..N within 35% of their median, each kernel counter
+    rising by the same count every epoch, the CUDA kernels of an early and
+    a late step equal, allocation at the end of epochs 2..N within 1 MB and
+    their peaks within 1%, the last checkpoint restoring to `steps`) and 1
+    LAP a step; logs the steady ms/step, epoch walls, loss windows, the
+    kernels and host-to-device copies of a steady step, memory by epoch.
+    Then the LAP is held against its plain version on the costs of the
+    first step (`hold_recorded_kernels`). Returns (launches, kernel rows)."""
+    from diffusiondrive_torch.entry import recording_kernel_calls
+    from diffusiondrive_torch.ops import kernel_counters
+    from diffusiondrive_torch.script.run_soak import run_soak
+
+    fns = kernel_counters()
+    for f in fns.values():
+        f.launches = 0
+    phase_t0 = time.perf_counter()
+    store: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as out, recording_kernel_calls(store, keep=1):
+        summary = run_soak(steps=steps, batch=8, pool=4, checkpoint_every=SOAK_EVERY, output_dir=out, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in fns.items() if f.launches}
+    log("soak_path run", card=card, steps=steps, ok=summary["ok"], failures=summary["failures"],
+        steady_ms_per_step=summary["steady_ms_per_step"], epoch_walls_s=summary["epoch_walls_s"],
+        epoch_walls_unprofiled_s=summary["epoch_walls_unprofiled_s"],
+        wall_s=summary["wall_s"], loss_first_k=summary["loss_first_k"], loss_last_k=summary["loss_last_k"],
+        loss_windows=summary["loss_windows"], steady_step_kernels=summary["compile_cache_size"],
+        step_profiles=summary["step_profiles"], htod_copies_per_step=summary["htod_copies_per_step"],
+        epoch_launches=summary["epoch_launches"],
+        memory_end_gb=[b / 1e9 for b in summary["memory_end_bytes"]],
+        memory_peak_gb=[b / 1e9 for b in summary["memory_peak_bytes"]], checkpoints=summary["checkpoints"])
+    if not summary["ok"] or counts != {"lap": steps}:
+        raise AssertionError(f"soak_path: failures {summary['failures']}, launches {counts} (want {steps} LAP)")
+    rows = hold_recorded_kernels("soak_path", store, card)
+    log("soak_path launches", card=card, phase_s=time.perf_counter() - phase_t0, **counts)
+    return counts, rows
+
+
 LAP_N = 30   # boxes per sample in training (`num_bounding_boxes`)
 
 
@@ -2639,6 +2890,19 @@ def lap_costs() -> dict:
         costs[B // 2:] = rng.integers(0, 4, size=(B - B // 2, LAP_N, LAP_N))
         out[B] = costs
     return out
+
+
+def scipy_lap_ms(c: torch.Tensor, iters: int = 10) -> float:
+    """The LAP's yardstick in ms: scipy's `linear_sum_assignment` on the host
+    over the batch of costs `c` on the card, with the device-to-host copy
+    and the sync the reference pays every step."""
+    from scipy.optimize import linear_sum_assignment
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        [linear_sum_assignment(x) for x in c.cpu().numpy()]
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def phase_lap(dev, build_logs: dict) -> dict:
@@ -2676,15 +2940,7 @@ def phase_lap(dev, build_logs: dict) -> dict:
             raise AssertionError(f"lap B={B}: the step counter changed the plain version's assignment")
         critical_steps = int(steps.max().item())
 
-        def scipy_host():
-            host = c.cpu().numpy()  # the copy and the sync the reference pays every step
-            return [linear_sum_assignment(x)[1] for x in host]
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            scipy_host()
-        library_ms = (time.perf_counter() - t0) / 10 * 1e3
+        library_ms = scipy_lap_ms(c)
         bms, by = bound_ms(0.0, 4.0 * B * n * n + 4.0 * B * n, torch.float32)
         times = time_rows({"kernel_ms": lambda: batched_linear_sum_assignment(c)})
         plain = time_rows({"plain_ms": lambda: linear_sum_assignment_plain(c)}, iters=1, warmup=1)
@@ -3008,10 +3264,11 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["ddp_path", "variants_path"],
+    parser.add_argument("--only", choices=["ddp_path", "variants_path", "capability_path", "soak_path"],
                         help="run the device line, the build, cli_path and this phase only, and print no "
                              "kernels line (ddp_path over every visible card: NCCL ranks a card, device "
-                             "lists of every card; variants_path: the registry's other model variants)")
+                             "lists of every card; variants_path: the registry's other model variants; "
+                             "capability_path and soak_path run without cli_path, the soak at 200 steps)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3024,6 +3281,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device().splitlines()[0]
     build_logs = phase_build()
+    if args.only in ("capability_path", "soak_path"):
+        {"capability_path": phase_capability_path, "soak_path": phase_soak_path}[args.only](dev, card)
+        log("chip_smoke wall", total_s=time.perf_counter() - _T0)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
             phase_cli_path(dev, card, Path(cli_root))
@@ -3043,6 +3306,9 @@ def main() -> int:
         counts["cli_path"] = phase_cli_path(dev, card, Path(cli_root))
         counts["ddp_path"] = phase_ddp_path(dev, card, Path(cli_root))
         counts["variants_path"] = phase_variants_path(dev, card, Path(cli_root))
+    counts["capability_path"], cap_rows = phase_capability_path(dev, card)
+    counts["soak_path"], soak_rows = phase_soak_path(dev, card, SOAK_STEPS_WHOLE)
+    summary.update({k: v for k, v in cap_rows.items() if k[0] == "lidar_splat"})
 
     bf = torch.bfloat16
     kernels = []
@@ -3088,6 +3354,14 @@ def main() -> int:
     kernels[3]["rows"] = {f"b{k[1]}": {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                                                          "critical_steps", "ns_per_step")}
                           for k, v in summary.items() if k[0] == "lap"}
+    for entry, kernel in ((kernels[0], "stem"), (kernels[1], "conv3x3"), (kernels[3], "lap")):
+        # the new paths' rows: each kernel on the inputs capability_path and soak_path gave it
+        rows = {f"{path} {list(k[1])} {k[2]}{' residual' if k[3] else ''}": {
+            f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "path")}
+            for path, k, v in [(p, k, v) for p, part in (("capability_path", cap_rows), ("soak_path", soak_rows))
+                               for k, v in part.items() if k[0] == kernel and k[4] == 0]}
+        entry["path_rows"] = rows
+        entry["max_abs_err"] = max([entry["max_abs_err"], *(r["max_abs_err"] for r in rows.values())])
     log("chip_smoke wall", total_s=time.perf_counter() - _T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,7 +52,7 @@ from diffusiondrive_torch.training.abstract_feature_target_builder import (
     AbstractFeatureBuilder,
     AbstractTargetBuilder,
 )
-from diffusiondrive_torch.training.callbacks import TimeLoggingCallback
+from diffusiondrive_torch.training.callbacks import BEVVisualizationCallback, TimeLoggingCallback
 from diffusiondrive_torch.training.losses import transfuser_loss
 from diffusiondrive_torch.training.train import OptimizerConfig, build_optimizer
 from diffusiondrive_torch.training.trainer import checkpoint_state_dict, load_checkpoint
@@ -200,6 +200,9 @@ class DiffusionDriveAgent(AbstractAgent):
         return build_optimizer(opt_cfg, self.model)
 
     def get_training_callbacks(self, output_dir=None):
-        # the JAX agent adds a BEV visualisation callback when `output_dir`
-        # is given; it waits for the port's visualisation module
-        return [TimeLoggingCallback()]
+        """The epoch timer, and with `output_dir` the BEV visualisation
+        tiles under `<output_dir>/viz`, as the JAX agent's."""
+        callbacks = [TimeLoggingCallback()]
+        if output_dir is not None:
+            callbacks.append(BEVVisualizationCallback(str(Path(output_dir) / "viz")))
+        return callbacks

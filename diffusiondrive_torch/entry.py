@@ -10,7 +10,8 @@ seeded `AgentInput` (`example_agent_input`), for
 ``agent.compute_trajectory(agent_input)``. Both take a `config` and a
 `trajectory_head_type`, so every model variant of the registry is driven
 through them (`VARIANTS`: the Transfuser baseline's MLP head, the
-diffusion-policy UNet, the ResNet-50 nuScenes model). `example_training_sample` and
+diffusion-policy UNet, the ResNet-50 nuScenes model, the 20-step
+vanilla-DDIM ablation). `example_training_sample` and
 `write_example_cache` make seeded feature/target pairs and a training cache
 of them (the format `training/dataset.py` reads) for the training path;
 `place_targets_at_predictions` makes a batch's detection assignment unique
@@ -43,7 +44,8 @@ from diffusiondrive_torch.models.transfuser_model import DiffusionDriveModel
 
 
 # the registry's model variants beyond `diffusiondrive_agent`
-VARIANTS = ("diffusion_policy_agent", "diffusiondrive_nuscenes_agent", "transfuser_agent")
+VARIANTS = ("diffusion_policy_agent", "diffusiondrive_nuscenes_agent", "diffusiondrive_vanilla_ddim_agent",
+            "transfuser_agent")
 
 
 def variant_config(name: str, **overrides) -> Tuple[str, TransfuserConfig]:
@@ -329,25 +331,42 @@ def _record_outputs(model: torch.nn.Module, store: Dict[str, List[torch.Tensor]]
 
 
 @contextlib.contextmanager
-def _recording_assignments(store: List[Tuple[torch.Tensor, torch.Tensor]]):
-    """The detection loss's two solvers wrapped to keep each call's float32
-    cost and assignment (on the CPU) in `store`."""
+def recording_kernel_calls(store: dict, keep: Optional[int] = None):
+    """The kernels' call sites in the model (`models/resnet.py`: the stem and
+    conv3x3) and in the detection loss (`training/losses.py`: the LAP, "lap",
+    and its plain solver past `MAX_N`, "lap_plain") wrapped to keep the
+    inputs and the output of the first `keep` calls (all with None) of each
+    kernel at each input shape and dtype, with or without a residual:
+    `store[(kernel, shape, dtype, residual)]` lists `(args, kwargs, out)`,
+    detached clones on their device, in call order. The calls themselves
+    run and count as before."""
+    from diffusiondrive_torch.models import resnet
     from diffusiondrive_torch.training import losses
 
-    kept = (losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain)
+    sites = {"stem": (resnet, "fused_stem"), "conv3x3": (resnet, "fused_conv3x3"),
+             "lap": (losses, "batched_linear_sum_assignment"), "lap_plain": (losses, "linear_sum_assignment_plain")}
+    originals = {k: getattr(mod, attr) for k, (mod, attr) in sites.items()}
 
-    def keeping(solve):
-        def solve_and_keep(cost):
-            cols = solve(cost)
-            store.append((cost.cpu(), cols.cpu()))
-            return cols
-        return solve_and_keep
+    def clone(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
 
-    losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain = map(keeping, kept)
+    def keeping(kernel, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            x = args[0]
+            calls = store.setdefault((kernel, tuple(x.shape), str(x.dtype), kwargs.get("residual") is not None), [])
+            if keep is None or len(calls) < keep:
+                calls.append(([clone(a) for a in args], {k: clone(v) for k, v in kwargs.items()}, clone(out)))
+            return out
+        return call
+
+    for k, (mod, attr) in sites.items():
+        setattr(mod, attr, keeping(k, originals[k]))
     try:
-        yield
+        yield store
     finally:
-        losses.batched_linear_sum_assignment, losses.linear_sum_assignment_plain = kept
+        for k, (mod, attr) in sites.items():
+            setattr(mod, attr, originals[k])
 
 
 def assignment_margin(cost: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor) -> float:
@@ -414,7 +433,7 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
         m = copy.deepcopy(model).to(device)
     disable_dropout(m)
     store: Dict[str, List[torch.Tensor]] = {}
-    solved: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    calls: dict = {}
     handles = (_record_outputs(m, store) if record else []) + (kinks.attach(m) if kinks is not None else [])
     boxes: List[torch.Tensor] = []
     if record:
@@ -426,7 +445,7 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
     torch.backends.cudnn.enabled = cudnn
     try:
         with kinks if kinks is not None else contextlib.nullcontext(), \
-                _recording_assignments(solved) if record else contextlib.nullcontext():
+                recording_kernel_calls(calls) if record else contextlib.nullcontext():
             losses = train_step(state, config, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
                                 timesteps=None if timesteps is None else timesteps.to(device),
                                 noise=None if noise is None else noise.to(device))
@@ -434,6 +453,8 @@ def train_step_on(model: DiffusionDriveModel, config: TransfuserConfig, batch: D
         torch.backends.cudnn.enabled = cudnn_was
         for h in handles:
             h.remove()
+    solved = [(args[0].cpu(), cols.cpu()) for (kernel, *_), kept in calls.items() if kernel in ("lap", "lap_plain")
+              for args, _, cols in kept]
     return {"losses": {k: v.item() for k, v in losses.items()},
             "grads": {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
             "stats": {k: b.detach().double().cpu() for k, b in m.named_buffers() if "running" in k},

@@ -23,7 +23,7 @@ step's 24, in stream order) and "conv3x3_train_grad_copy" (the gradient
 copied to channels_last, where autograd hands one over in another layout).
 `--variant` profiles another model variant of the registry
 (`entry.VARIANTS`: `transfuser_agent`, `diffusion_policy_agent`,
-`diffusiondrive_nuscenes_agent`) at full width in each of the three.
+`diffusiondrive_nuscenes_agent`, `diffusiondrive_vanilla_ddim_agent`) at full width in each of the three.
 Needs a CUDA device; there is no CPU fallback.
 
 Example (one GPU):

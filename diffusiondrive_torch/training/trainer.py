@@ -180,10 +180,15 @@ class Trainer:
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A numpy batch on the trainer's device. On CUDA the arrays are
-        pinned first, so the copies run asynchronously on the stream."""
+        pinned first, so the copies run asynchronously on the stream. A
+        tensor already on the device passes through (a batch moved there
+        once and cycled, as `script/run_soak.py` does)."""
         cuda = self.device.type == "cuda"
         out = {}
         for k, v in batch.items():
+            if isinstance(v, torch.Tensor) and v.device == self.device:
+                out[k] = v
+                continue
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = (t.pin_memory() if cuda else t).to(self.device, non_blocking=cuda)
         return out

@@ -3,8 +3,9 @@
 Config composition (`config/compose.py`) on every case of
 `tests/test_config_compose.py` and the repo's top-level configs: the same
 dict, the same error class and message, a byte-equal `config.yaml`
-snapshot. The registry: JAX's agent names, the agents that raise naming
-their ROADMAP item, the YAML dtype, the orbax refusal, the splits. The
+snapshot. The registry: JAX's agent names, the model variants built as
+JAX's registry builds them (head and config) with a finite CPU forward,
+the YAML dtype, the orbax refusal, the splits. The
 EgoStatusMLP agent: its forward within 1e-5 on JAX's converted params,
 `training/generic.py`'s losses and parameters within 1e-5 relative of
 JAX's generic step over 20 Adam steps on the same batches (the two

@@ -411,7 +411,7 @@ def test_trainer_checkpoint_resume_equals_straight_run(tmp_path):
 def test_agent_training_interface_and_trainer_checkpoint(tmp_path):
     from diffusiondrive_torch.agents.diffusiondrive.agent import DiffusionDriveAgent
     from diffusiondrive_torch.agents.diffusiondrive.features import TransfuserTargetBuilder
-    from diffusiondrive_torch.training.callbacks import TimeLoggingCallback
+    from diffusiondrive_torch.training.callbacks import BEVVisualizationCallback, TimeLoggingCallback
     from diffusiondrive_torch.training.dataset import CacheOnlyDataset, batch_iterator
 
     cfg = _port_config(tiny_config())
@@ -421,7 +421,9 @@ def test_agent_training_interface_and_trainer_checkpoint(tmp_path):
     ds = CacheOnlyDataset(str(cache), agent.get_feature_builders(), agent.get_target_builders())
     trainer.fit(lambda e: batch_iterator(ds, 2, num_workers=1), 1)
     assert isinstance(agent.get_target_builders()[0], TransfuserTargetBuilder)
-    assert [type(c) for c in agent.get_training_callbacks(str(tmp_path))] == [TimeLoggingCallback]
+    # with an output directory JAX's agent adds the BEV tiles under <output_dir>/viz
+    assert [type(c) for c in agent.get_training_callbacks(str(tmp_path))] == [TimeLoggingCallback,
+                                                                                BEVVisualizationCallback]
     optimizer, scheduler = agent.get_optimizers()
     assert {g["label"] for g in optimizer.param_groups} == {"default", "image_encoder"}
 
