@@ -12,7 +12,8 @@ line per phase, then one JSON line per kernel summary, then the result:
                and fails unless ptxas reports 0 spill bytes for each of the
                four instantiations (DP = 16, 32, 64, 128) of every
                tensor-core attention kernel (`MMA_KERNELS`: the forward and
-               the backward's two launches), each of the four (residual,
+               the backward's two launches) and for their three DP = 256
+               counterparts (`WIDE_MMA_KERNELS`), each of the four (residual,
                ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`)
                and each of the four (C = 1..4) of the tensor-core stem
                kernel (`STEM_MMA_KERNEL`), and for the LAP and splat
@@ -36,9 +37,10 @@ line per phase, then one JSON line per kernel summary, then the result:
                ``kernel attention_fwd`` / ``attention_bwd`` (the fused
                attention at the fusion blocks' B=64, H=4, T=320 and each
                stage's D = 16, 32, 64, 128, and ResNet-50's stage-3 D = 256
-               (bf16 on the CUDA cores), bf16 and f32, without and with a
-               p=0.1 keep mask; `path` names the kernel that ran, "mma"
-               (bf16, tensor cores) or "cuda_core" (f32); library:
+               (bf16 on the wide tensor-core kernels), bf16 and f32, without
+               and with a p=0.1 keep mask; `path` names the kernel that ran,
+               "mma" (bf16, tensor cores) or "cuda_core" (f32), and bf16 rows
+               carry its ptxas registers and spill bytes; library:
                `scaled_dot_product_attention` unmasked with its backend
                pinned, `SDPA_BACKEND`; one untimed pass over the first row
                first) and ``kernel conv3x3_train`` (its forward and input
@@ -237,7 +239,8 @@ the last line only: on a machine of several cards, the check of the
 data-parallel paths across them. ``--only variants_path`` runs phases 1,
 2, 8 and 9b and the last line; ``--only capability_path`` and ``--only
 soak_path`` run phases 1, 2 and that phase (the soak at its 200 steps) and
-the last line.
+the last line; ``--only attention`` runs phases 1, 2, the attention rows
+of phase 3 and the last line (the quick check of `csrc/attention_fused.cu`).
 
 Any failure raises and exits non-zero; without a CUDA device it exits 2
 before printing any result.
@@ -393,6 +396,8 @@ def phase_device() -> str:
 
 # the tensor-core attention kernels of `csrc/attention_fused.cu`, each built for DP = 16, 32, 64, 128
 MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")
+# their counterparts at DP = 256 (bf16 with 128 < D <= 256), no templates
+WIDE_MMA_KERNELS = ("attn_fwd_mma_wide_kernel", "attn_bwd_dq_mma_wide_kernel", "attn_bwd_dkdv_mma_wide_kernel")
 # the tensor-core conv3x3 kernel of `csrc/conv3x3_fused.cu`, built for (RES, RELU) in {0, 1}^2
 CONV_MMA_KERNEL = "conv3x3_mma_kernel"
 # the tensor-core stem kernel of `csrc/stem_fused.cu`, built for C = 1, 2, 3, 4
@@ -439,19 +444,20 @@ def phase_build() -> dict:
              if name not in ("attention_fused", "conv3x3_fused", "stem_fused", *SINGLE_KERNELS)
              for ln in text.splitlines() if "registers" in ln or "spill" in ln]
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
+    wide = {k: ptxas_stats(logs["attention_fused"], k).get("") for k in WIDE_MMA_KERNELS}
     conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
     stem = {STEM_MMA_KERNEL: ptxas_stats(logs["stem_fused"], STEM_MMA_KERNEL)}
     single = {k: ptxas_stats(logs[src], k).get("") for src, k in SINGLE_KERNELS.items()}
     log("build", seconds=round(time.time() - t0, 3), built=built,
         kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
-        conv_mma_regs_spills=conv, stem_mma_regs_spills=stem, lap_splat_regs_spills=single)
+        attn_wide_regs_spills=wide, conv_mma_regs_spills=conv, stem_mma_regs_spills=stem, lap_splat_regs_spills=single)
     bad = {k: v for k, v in {**mma, **conv, **stem}.items()
            if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
     if bad:
         raise AssertionError(f"tensor-core kernels: want 4 instantiations each with 0 spill bytes, got {bad}")
-    bad = {k: v for k, v in single.items() if v is None or v[1] or v[2]}
+    bad = {k: v for k, v in {**wide, **single}.items() if v is None or v[1] or v[2]}
     if bad:
-        raise AssertionError(f"LAP and splat kernels: want 0 spill bytes each, got {bad}")
+        raise AssertionError(f"wide attention, LAP and splat kernels: want 0 spill bytes each, got {bad}")
     return logs
 
 
@@ -628,10 +634,22 @@ CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # laye
 SDPA_BACKEND = {torch.bfloat16: SDPBackend.CUDNN_ATTENTION, torch.float32: SDPBackend.EFFICIENT_ATTENTION}
 
 
-def phase_attention(dev) -> dict:
+def attention_regs_spills(logs: dict, backward: bool, D: int) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    build's ptxas log for the bf16 tensor-core kernels a call at head width
+    D launches (`csrc/attention_fused.cu:dispatch`: DP = 16, 32, 64, 128,
+    or the wide kernels past 128)."""
+    if D > 128:
+        kernels, key = WIDE_MMA_KERNELS, ""
+    else:
+        kernels, key = MMA_KERNELS, str(next(n for n in (16, 32, 64, 128) if D <= n))
+    return {k: ptxas_stats(logs["attention_fused"], k).get(key) for k in (kernels[1:] if backward else kernels[:1])}
+
+
+def phase_attention(dev, logs: dict) -> dict:
     """The fused attention kernels (forward, backward) at the fusion blocks'
     shapes (B=64, H=4, T=320, every stage's D, and ResNet-50's stage-3
-    D = 256, which bf16 runs on the CUDA cores) in bf16 and f32, without and
+    D = 256, which bf16 runs on the wide kernels) in bf16 and f32, without and
     with a p=0.1 keep mask, against their plain versions on the same inputs
     (bf16 also within 2 bf16 ulps of max |plain|, `check_bf16_ulps`):
     q, k, v and dO as (B, H, T, D) views of (B, T, H, D) memory, as the
@@ -686,7 +704,8 @@ def phase_attention(dev) -> dict:
                 bms, by = bound_ms(4.0 * B * H * T * T * D, esize * 4.0 * B * H * T * D + mbytes, dtype)
                 row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
                            path=forward_kernel(dtype, D), max_abs_err=err, limit=limit, ulp_limit=ulps,
-                           **time_rows(fwd_fns), library_backend=backend.name.lower(), bound_ms=bms, bound_by=by)
+                           **time_rows(fwd_fns), library_backend=backend.name.lower(), bound_ms=bms, bound_by=by,
+                           regs_spills=attention_regs_spills(logs, False, D) if dtype == torch.bfloat16 else None)
                 log(f"kernel attention_fwd d{D} {variant}", **row)
                 summary[("attention_fwd", D, variant, dtype)] = row
 
@@ -706,7 +725,8 @@ def phase_attention(dev) -> dict:
                            path=backward_kernel(dtype, D), max_abs_err=max(e for e, _ in errs.values()),
                            errors={n: e for n, (e, _) in errs.items()}, limits={n: l for n, (_, l) in errs.items()},
                            ulp_limits=ulps, **time_rows(bwd_fns), library_backend=backend.name.lower(),
-                           bound_ms=bms, bound_by=by)
+                           bound_ms=bms, bound_by=by,
+                           regs_spills=attention_regs_spills(logs, True, D) if dtype == torch.bfloat16 else None)
                 log(f"kernel attention_bwd d{D} {variant}", **row)
                 summary[("attention_bwd", D, variant, dtype)] = row
     return summary
@@ -3264,11 +3284,12 @@ def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["ddp_path", "variants_path", "capability_path", "soak_path"],
+    parser.add_argument("--only", choices=["ddp_path", "variants_path", "capability_path", "soak_path", "attention"],
                         help="run the device line, the build, cli_path and this phase only, and print no "
                              "kernels line (ddp_path over every visible card: NCCL ranks a card, device "
                              "lists of every card; variants_path: the registry's other model variants; "
-                             "capability_path and soak_path run without cli_path, the soak at 200 steps)")
+                             "capability_path and soak_path run without cli_path, the soak at 200 steps; "
+                             "attention: the attention kernel rows alone)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3281,8 +3302,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device().splitlines()[0]
     build_logs = phase_build()
-    if args.only in ("capability_path", "soak_path"):
-        {"capability_path": phase_capability_path, "soak_path": phase_soak_path}[args.only](dev, card)
+    alone = {"capability_path": lambda: phase_capability_path(dev, card),
+             "soak_path": lambda: phase_soak_path(dev, card), "attention": lambda: phase_attention(dev, build_logs)}
+    if args.only in alone:
+        alone[args.only]()
         log("chip_smoke wall", total_s=time.perf_counter() - _T0)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -3296,7 +3319,7 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
     summary = phase_kernels(dev)
-    summary.update(phase_attention(dev))
+    summary.update(phase_attention(dev, build_logs))
     summary.update(phase_conv3x3_train(dev))
     summary.update(phase_lap(dev, build_logs))
     counts = {**phase_main_path(dev), "agent_path": phase_agent_path(dev),
@@ -3349,7 +3372,8 @@ def main() -> int:
     for entry in kernels[4:6]:   # ResNet-50's stage 3, beside the four ResNet-34 stages summed above
         entry["resnet50_d256"] = {f"{variant} {str(dt).split('.')[1]}": {
             f: summary[(entry["name"], 256, variant, dt)][f] for f in (
-                "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "path", "max_abs_err")}
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "path", "max_abs_err",
+                "regs_spills")}
             for variant in ("no_mask", "masked") for dt in (bf, torch.float32)}
     kernels[3]["rows"] = {f"b{k[1]}": {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                                                          "critical_steps", "ns_per_step")}

@@ -6,16 +6,18 @@
 // _fwd_kernel` (:78, pallas_call in `_fwd_pallas` :140) and `_bwd_kernel`
 // (:92, pallas_call in `_bwd_pallas` :160): 8 forwards and 8 backwards per
 // train step with `fused_attention_mode="on"` (4 fusion stages x 2 blocks,
-// B x 4 heads, T = 320 tokens, D = 16, 32, 64, 128).
+// B x 4 heads, T = 320 tokens, D = 16, 32, 64, 128); the ResNet-50 agent's
+// stage 3 adds D = 256 (2 forwards and 2 backwards a step).
 //
 // What bounds it on an H100 SXM: at B=64, H=4, T=320, D=128 in bf16 the
 // forward does 4*B*H*T^2*D = 13.4 GFLOP (13.6 us at 989 TFLOP/s) and moves
 // q, k, v, o = 84 MB plus a 26 MB mask (33 us at 3.35 TB/s): memory sets
 // the bound (about 120 flop/B against the ~295 the card needs before
 // compute binds); at D=16 the mask is 3/4 of the bytes. The backward does
-// 2.5x the forward's flops over 1.75x its bytes, also memory-bound.
+// 2.5x the forward's flops over 1.75x its bytes, also memory-bound; D=256
+// doubles both.
 //
-// Two forward kernels:
+// Forward kernels:
 // - bf16 with D <= 128 (every fusion stage): `attn_fwd_mma_kernel`, on the
 //   tensor cores. Multiplying on the CUDA cores in f32 (the kernel below)
 //   ran 82x the bound at D=128: q.k^T issued 5 shared loads per 4 FMAs and
@@ -34,13 +36,19 @@
 //   not an online rescale of the output: the JAX kernel rounds the
 //   normalised p, and the recomputed q.k^T costs flops where bytes bind
 //   (K and V of one head, <= 80 KB each at T = 320, come back from L2).
-// - float32, and bf16 with 128 < D <= 256 (no fusion stage): the CUDA-core
-//   kernel `attn_fwd_kernel`, f32 FMAs, 16 query rows per block with their
-//   scores in shared memory. TF32 products would break float32's 1e-4
-//   limit against the plain version.
+// - bf16 with 128 < D <= 256 (ResNet-50's stage 3): `attn_fwd_mma_wide_kernel`,
+//   the same two passes at DP = 256. Registers set the limit there (255 a
+//   thread, no spills): the 16 x 256 f32 output accumulator alone is 128 a
+//   thread, so the Q fragments (64 more) are read from shared memory at each
+//   k16 step instead of being held, and the key tiles shrink to 32 (16 score
+//   registers; Q, two K and two V tiles take 99 KB, 105 KB with the mask
+//   tiles, so two blocks share an SM).
+// - float32: the CUDA-core kernel `attn_fwd_kernel`, f32 FMAs, 16 query
+//   rows per block with their scores in shared memory. TF32 products would
+//   break float32's 1e-4 limit against the plain version.
 //
-// Two backward designs, each two launches with the per-row statistics in
-// a (3, B*H*T) f32 scratch between them; dq is owned by query tiles, dk and
+// Backward designs, each two launches with the per-row statistics in a
+// (3, B*H*T) f32 scratch between them; dq is owned by query tiles, dk and
 // dv by key tiles, so no atomics and the same bits in every run:
 // - bf16 with D <= 128: `attn_bwd_dq_mma_kernel` then
 //   `attn_bwd_dkdv_mma_kernel`, the forward's tensor-core machinery
@@ -59,7 +67,20 @@
 //   statistics and the same exp. Ten tile products a score, against the
 //   forward's three; merging launch 1's passes would hold p and dp for the
 //   block in shared memory (160 KB at T = 320, too much at T = 512).
-// - float32, and bf16 with 128 < D <= 256: the CUDA-core kernels below.
+// - bf16 with 128 < D <= 256: `attn_bwd_dq_mma_wide_kernel` then
+//   `attn_bwd_dkdv_mma_wide_kernel`, the same two launches at DP = 256.
+//   Launch 1 reads the Q and dO fragments from shared memory per product
+//   and streams 32-key tiles, as the wide forward (dq is 128 accumulators a
+//   thread). Launch 2 cannot hold dk and dv at full width (256 accumulators
+//   a thread), so its grid also splits D in halves: each block recomputes
+//   s^T and dp^T over all 256 columns and accumulates 128 columns of dk and
+//   dv, the DP = 128 kernel's register partition. Of the ways to split D
+//   (two warps per 16 keys, each owning a half; a half per block; pd^T and
+//   ds^T staged in shared memory so that the output products' warp layout
+//   is free) this one keeps the DP = 128 kernel's loaders, 128 threads and
+//   accumulator layout as they are; its price, s^T and dp^T computed twice,
+//   is tensor-core flops where bytes bind.
+// - float32: the CUDA-core kernels below.
 //
 // Design of the CUDA-core kernels: the TPU kernel held all heads of a
 // batch row with whole (T, T) f32 tiles in VMEM; a (320, 320) f32 score
@@ -455,45 +476,45 @@ using ddt::mma_bf16;
 using ddt::pack_bf16;
 using ddt::smem_u32;
 
-// Rows [r0, r0 + 64) of one head's (T, D) matrix into a [64][DP + 8] tile;
+// Rows [r0, r0 + ROWS) of one head's (T, D) matrix into a [ROWS][DP + 8] tile;
 // rows past T and columns past D become zero. With VEC_QKV by 16-byte
 // cp.async (D % 8 == 0, 16-byte aligned rows), else by element loads.
-template <int DP>
+template <int DP, int ROWS = MK>
 __device__ __forceinline__ void load_rows(bf16* dst, const View<const bf16>& m, int b, int h, int r0,
                                           int T_, int D, bool vec) {
   constexpr int LD = DP + 8, CPR = DP / 8;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < MK * CPR / MNT; ++it) {
+    for (int it = 0; it < ROWS * CPR / MNT; ++it) {
       const int e = threadIdx.x + it * MNT, r = e / CPR, c = (e - r * CPR) * 8;
       const bool ok = r0 + r < T_ && c < D;
       cp_async16(smem_u32(dst + r * LD + c), ok ? m.row(b, h, r0 + r) + c : m.p, ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < MK * DP; e += MNT) {
+    for (int e = threadIdx.x; e < ROWS * DP; e += MNT) {
       const int r = e / DP, c = e - r * DP;
       dst[r * LD + c] = r0 + r < T_ && c < D ? m.row(b, h, r0 + r)[c] : __float2bfloat16(0.f);
     }
   }
 }
 
-// The (64 query rows) x (64 keys) block of the keep mask at (i0, j0) of
+// The (64 query rows) x (KEYS keys) block of the keep mask at (i0, j0) of
 // head row `bh` into [64][LDM] bytes; outside T x T zero.
-template <int LDM = MASK_LD>
+template <int LDM = MASK_LD, int KEYS = MK>
 __device__ __forceinline__ void load_mask(unsigned char* dst, const unsigned char* mask, int bh,
                                           int i0, int j0, int T_, bool vec) {
   const size_t base = (size_t)bh * T_ * T_;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < MQ * (MK / 8) / MNT; ++it) {
-      const int e = threadIdx.x + it * MNT, r = e / (MK / 8), c = (e - r * (MK / 8)) * 8;
+    for (int it = 0; it < MQ * (KEYS / 8) / MNT; ++it) {
+      const int e = threadIdx.x + it * MNT, r = e / (KEYS / 8), c = (e - r * (KEYS / 8)) * 8;
       const bool ok = i0 + r < T_ && j0 + c < T_;  // T % 8 == 0: a chunk is whole or out
       cp_async8(smem_u32(dst + r * LDM + c), ok ? mask + base + (size_t)(i0 + r) * T_ + j0 + c : mask,
                 ok ? 8 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < MQ * MK; e += MNT) {
-      const int r = e / MK, c = e - r * MK;
+    for (int e = threadIdx.x; e < MQ * KEYS; e += MNT) {
+      const int r = e / KEYS, c = e - r * KEYS;
       dst[r * LDM + c] = i0 + r < T_ && j0 + c < T_ ? mask[base + (size_t)(i0 + r) * T_ + j0 + c] : 0;
     }
   }
@@ -735,10 +756,9 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB / 8][4], const bf16* a, 
 }
 
 // acc (16 x DP) += P M: P as KS k16 steps of A fragments, M the rows
-// [0, 16 KS) of a [rows][DP + 8] tile, read by ldmatrix.trans.
-template <int DP, int KS>
+// [0, 16 KS) and columns [0, DP) of a [rows][LD] tile, read by ldmatrix.trans.
+template <int DP, int KS, int LD = DP + 8>
 __device__ __forceinline__ void mma_pm(float (&acc)[DP / 8][4], const uint32_t (&pa)[KS][4], const bf16* mt) {
-  constexpr int LD = DP + 8;
   const int lane = threadIdx.x & 31;
   const int vr = (lane & 7) + (((lane >> 3) & 1) << 3), vc = (lane >> 4) << 3;
 #pragma unroll
@@ -765,17 +785,19 @@ __device__ __forceinline__ void c_to_a(uint32_t (&pa)[NC / 2][4], const float (&
   }
 }
 
-// x = keep ? x / (1 - p) : 0 on a 16 x 64 C-layout tile whose rows are the
-// mask tile's rows; `mrow` points at the thread's row g, column 2 (lane % 4).
+// x = keep ? x / (1 - p) : 0 on a 16 x NB C-layout tile whose rows are the
+// mask tile's rows (LDM bytes apart); `mrow` points at the thread's row g,
+// column 2 (lane % 4).
 // As x times a selected factor: the same values for finite x (a dropped
 // entry becomes a signed zero), and no branch (the conditional product
 // compiled to divergent branches and made the masked backward 1.2-1.6x
 // the unmasked one).
-__device__ __forceinline__ void apply_mask(float (&x)[MK / 8][4], const unsigned char* mrow, float inv_keep) {
+template <int NB = MK, int LDM = MASK_LDB>
+__device__ __forceinline__ void apply_mask(float (&x)[NB / 8][4], const unsigned char* mrow, float inv_keep) {
 #pragma unroll
-  for (int n = 0; n < MK / 8; ++n) {
+  for (int n = 0; n < NB / 8; ++n) {
     const uint32_t keep[2] = {*reinterpret_cast<const uint16_t*>(mrow + n * 8),
-                              *reinterpret_cast<const uint16_t*>(mrow + 8 * MASK_LDB + n * 8)};
+                              *reinterpret_cast<const uint16_t*>(mrow + 8 * LDM + n * 8)};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       x[n][e] = __fmul_rn(x[n][e], (keep[e >> 1] >> (8 * (e & 1))) & 0xffu ? inv_keep : 0.f);
@@ -1056,6 +1078,346 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_kernel(Args<bf16> a, in
   store_acc<DP>(a.dv, dv, b, h, j0 + warp * 16, T_, D, vout);
 }
 
+// ---- bf16 with 128 < D <= 256 on the tensor cores ----
+
+// D zero-padded to DW; see the file header for the register partition.
+constexpr int DW = 256;       // padded head width
+constexpr int MKW = 32;       // keys per streamed tile (forward, backward launch 1)
+constexpr int MASK_LDW = 48;  // mask row stride of a 64 x 32 tile (bytes): conflict-free u16 row-pair reads
+constexpr int DH = DW / 2;    // dk and dv columns per block (backward launch 2)
+
+// s = (q k^T) * scale for the warp's 16 rows `qw` and the NB keys of `kt`
+// (both [rows][DW + 8] tiles) in the mma C layout; keys past T get -inf.
+template <int NB>
+__device__ __forceinline__ void wide_scores(float (&s)[NB / 8][4], const bf16* qw, const bf16* kt, int j0, int T_,
+                                            float scale) {
+  mma_abt<DW, NB>(s, qw, kt);
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+  if (j0 + NB > T_) {  // the last tile: keys past T (whole n8 tiles, T % 8 == 0) get -inf
+    const float ninf = -__int_as_float(0x7f800000);
+#pragma unroll
+    for (int n = 0; n < NB / 8; ++n)
+      if (j0 + n * 8 >= T_) s[n][0] = s[n][1] = s[n][2] = s[n][3] = ninf;
+  }
+}
+
+// The forward at 128 < D <= 256: `attn_fwd_mma_kernel`'s two passes over
+// 32-key tiles, the warp's 16 Q rows read from shared memory per product.
+__global__ void __launch_bounds__(MNT) attn_fwd_mma_wide_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DW + 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [MQ][LD]
+  bf16* ks = qs + MQ * LD;                       // [NS][MKW][LD]
+  bf16* vs = ks + NS * MKW * LD;                 // [NS][MKW][LD]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(vs + NS * MKW * LD);  // [NS][MQ][MASK_LDW]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nkt = (T_ + MKW - 1) / MKW, stages = 2 * nkt;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t < nkt: K tile t (pass 1); stage nkt + t: K, V and mask tile t (pass 2).
+  auto issue = [&](int t) {
+    if (t < stages) {
+      const int buf = t % NS, j0 = (t < nkt ? t : t - nkt) * MKW;
+      load_rows<DW, MKW>(ks + buf * MKW * LD, a.k, b, h, j0, T_, D, vec);
+      if (t >= nkt) {
+        load_rows<DW, MKW>(vs + buf * MKW * LD, a.v, b, h, j0, T_, D, vec);
+        if (a.mask) load_mask<MASK_LDW, MKW>(ms + buf * MQ * MASK_LDW, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+      }
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {  // prefetch stage t + NS - 1, then wait for stage t (and Q)
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DW>(qs, a.q, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  const bf16* qw = qs + warp * 16 * LD;
+  float mx[2], l[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+
+  // Pass 1: each row's max and sum of exp(s - max), online over the tiles.
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    float s[MKW / 8][4];
+    wide_scores<MKW>(s, qw, ks + (t % NS) * MKW * LD, t * MKW, T_, a.scale);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < MKW / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < MKW / 8; ++n) sum += exp_shifted(s[n][2 * r], ml) + exp_shifted(s[n][2 * r + 1], ml);
+      l[r] = l[r] * exp_shifted(mx[r], ml) + sum;  // the first tile: exp(-inf) = 0
+      mx[r] = m;
+    }
+    __syncthreads();
+  }
+  float inv_l[2], mxl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv_l[r] = 1.f / quad_sum(l[r]);
+    mxl[r] = mx[r] * LOG2E;
+  }
+
+  // Pass 2: p = exp(s - max) / sum, the mask, rounded to bf16, times V.
+  float o[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const int mrow = (warp * 16 + g) * MASK_LDW + 2 * qd;
+  for (int t = nkt; t < stages; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MKW / 8][4];
+    wide_scores<MKW>(s, qw, ks + buf * MKW * LD, (t - nkt) * MKW, T_, a.scale);
+#pragma unroll
+    for (int n = 0; n < MKW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(exp_shifted(s[n][e], mxl[e >> 1]), inv_l[e >> 1]);
+    if (a.mask) apply_mask<MKW, MASK_LDW>(s, ms + buf * MQ * MASK_LDW + mrow, a.inv_keep);
+    uint32_t pa[MKW / 16][4];
+    c_to_a(pa, s);
+    mma_pm<DW, MKW / 16>(o, pa, vs + buf * MKW * LD);
+    __syncthreads();
+  }
+  store_acc<DW>(a.o, o, b, h, i0 + warp * 16, T_, D, flags & VEC_OUT);
+}
+
+// Launch 1 of the backward at 128 < D <= 256: `attn_bwd_dq_mma_kernel`
+// over 32-key tiles, the warp's Q and dO rows read from shared memory per
+// product (one block an SM: Q, dO and two K and V tiles take 132 KB).
+__global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_wide_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DW + 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // [MQ][LD]
+  bf16* dos = qs + MQ * LD;                      // [MQ][LD]
+  bf16* ks = dos + MQ * LD;                      // [NS][MKW][LD]
+  bf16* vs = ks + NS * MKW * LD;                 // [NS][MKW][LD]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(vs + NS * MKW * LD);  // [NS][MQ][MASK_LDW]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nkt = (T_ + MKW - 1) / MKW, stages = 2 * nkt;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: K, V and mask tile t % nkt (pass 1 for t < nkt, then pass 2).
+  auto issue = [&](int t) {
+    if (t < stages) {
+      const int buf = t % NS, j0 = (t % nkt) * MKW;
+      load_rows<DW, MKW>(ks + buf * MKW * LD, a.k, b, h, j0, T_, D, vec);
+      load_rows<DW, MKW>(vs + buf * MKW * LD, a.v, b, h, j0, T_, D, vec);
+      if (a.mask) load_mask<MASK_LDW, MKW>(ms + buf * MQ * MASK_LDW, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DW>(qs, a.q, b, h, i0, T_, D, vec);
+  load_rows<DW>(dos, a.dout, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  const bf16* qw = qs + warp * 16 * LD;
+  const bf16* dow = dos + warp * 16 * LD;
+  const int mrow = (warp * 16 + g) * MASK_LDW + 2 * qd;
+  float mx[2], l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+
+  // Pass 1: online max, sum and dp-weighted sum of exp(s - max).
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MKW / 8][4], dp[MKW / 8][4];
+    wide_scores<MKW>(s, qw, ks + buf * MKW * LD, t * MKW, T_, a.scale);
+    mma_abt<DW, MKW>(dp, dow, vs + buf * MKW * LD);
+    if (a.mask) apply_mask<MKW, MASK_LDW>(dp, ms + buf * MQ * MASK_LDW + mrow, a.inv_keep);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < MKW / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E;
+      float sum = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < MKW / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = exp_shifted(s[n][2 * r + c], ml);
+          sum += e;
+          dsum = fmaf(dp[n][2 * r + c], e, dsum);
+        }
+      const float corr = exp_shifted(mx[r], ml);  // the first tile: exp(-inf) = 0
+      l[r] = l[r] * corr + sum;
+      dl[r] = dl[r] * corr + dsum;
+      mx[r] = m;
+    }
+    __syncthreads();
+  }
+  float mxl[2], inv_l[2], delta[2];
+  const size_t N = (size_t)a.B * a.H * T_;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    inv_l[r] = 1.f / lsum;
+    mxl[r] = mx[r] * LOG2E;
+    delta[r] = quad_sum(dl[r]) / lsum;
+    const int i = i0 + warp * 16 + g + 8 * r;
+    if (qd == 0 && i < T_) {
+      const size_t row = (size_t)bh * T_ + i;
+      a.stats[row] = mxl[r];
+      a.stats[N + row] = inv_l[r];
+      a.stats[2 * N + row] = delta[r];
+    }
+  }
+
+  // Pass 2: ds in the C fragments, rounded to bf16 as A fragments, times K.
+  float dq[DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  for (int t = nkt; t < stages; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[MKW / 8][4], dp[MKW / 8][4];
+    wide_scores<MKW>(s, qw, ks + buf * MKW * LD, (t - nkt) * MKW, T_, a.scale);
+    mma_abt<DW, MKW>(dp, dow, vs + buf * MKW * LD);
+    if (a.mask) apply_mask<MKW, MASK_LDW>(dp, ms + buf * MQ * MASK_LDW + mrow, a.inv_keep);
+#pragma unroll
+    for (int n = 0; n < MKW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fmul_rn(exp_shifted(s[n][e], mxl[r]), inv_l[r]);
+        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[r])), a.scale);
+      }
+    uint32_t da[MKW / 16][4];
+    c_to_a(da, s);
+    mma_pm<DW, MKW / 16>(dq, da, ks + buf * MKW * LD);
+    __syncthreads();
+  }
+  store_acc<DW>(a.dq, dq, b, h, i0 + warp * 16, T_, D, flags & VEC_OUT);
+}
+
+// Launch 2 of the backward at 128 < D <= 256: `attn_bwd_dkdv_mma_kernel`
+// on a grid that also splits D in halves (blockIdx.z). Each block
+// recomputes s^T and dp^T over the full padded width and accumulates its
+// 128 columns of dk and dv: the DP = 128 kernel's 128 accumulators a thread
+// (why this split: the file header).
+__global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_wide_kernel(Args<bf16> a, int flags) {
+  constexpr int LD = DW + 8, QC = 32;  // QC: queries per chunk
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_mma);  // [MK][LD]
+  bf16* vs = ks + MK * LD;                       // [MK][LD]
+  bf16* qs = vs + MK * LD;                       // [NS][MQ][LD]
+  bf16* dos = qs + NS * MQ * LD;                 // [NS][MQ][LD]
+  float* sts = reinterpret_cast<float*>(dos + NS * MQ * LD);                 // [NS][3][MQ]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(sts + NS * 3 * MQ);  // [NS][MQ][MASK_LDB]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, j0 = blockIdx.y * MK, d0 = blockIdx.z * DH;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nqt = (T_ + MQ - 1) / MQ;
+  const size_t N = (size_t)a.B * a.H * T_;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: Q, dO, statistics and mask of query tile t.
+  auto issue = [&](int t) {
+    if (t < nqt) {
+      const int buf = t % NS, i0 = t * MQ;
+      load_rows<DW>(qs + buf * MQ * LD, a.q, b, h, i0, T_, D, vec);
+      load_rows<DW>(dos + buf * MQ * LD, a.dout, b, h, i0, T_, D, vec);
+      load_stats(sts + buf * 3 * MQ, a.stats, N, (size_t)bh * T_ + i0, T_ - i0);
+      if (a.mask) load_mask<MASK_LDB>(ms + buf * MQ * MASK_LDB, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DW>(ks, a.k, b, h, j0, T_, D, vec);
+  load_rows<DW>(vs, a.v, b, h, j0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  const bf16* kr = ks + warp * 16 * LD;
+  const bf16* vr = vs + warp * 16 * LD;
+  const int mcol = warp * 16 + g;  // the thread's key column in the mask tile (and + 8)
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < nqt; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    const bf16* qt = qs + buf * MQ * LD;
+    const bf16* dot = dos + buf * MQ * LD;
+    const float* st = sts + buf * 3 * MQ;
+    const unsigned char* mt = ms + buf * MQ * MASK_LDB;
+#pragma unroll 1
+    for (int c0 = 0; c0 < MQ; c0 += QC) {
+      float s[QC / 8][4], dp[QC / 8][4];  // rows: keys g, g + 8; columns: queries
+      mma_abt<DW, QC>(s, kr, qt + c0 * LD);
+      mma_abt<DW, QC>(dp, vr, dot + c0 * LD);
+#pragma unroll
+      for (int n = 0; n < QC / 8; ++n) {
+        const int c = c0 + n * 8 + 2 * qd;  // the query of e = 0, 2; c + 1 for e = 1, 3
+        const float2 ml = *reinterpret_cast<const float2*>(st + c);
+        const float2 il = *reinterpret_cast<const float2*>(st + MQ + c);
+        const float2 de = *reinterpret_cast<const float2*>(st + 2 * MQ + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e & 1;
+          const float p = __fmul_rn(exp_shifted(__fmul_rn(s[n][e], a.scale), hi ? ml.y : ml.x), hi ? il.y : il.x);
+          float pd = p, d = dp[n][e];
+          if (a.mask) {
+            const float km = mt[(c + hi) * MASK_LDB + mcol + 8 * (e >> 1)] ? a.inv_keep : 0.f;  // as `apply_mask`
+            pd = __fmul_rn(p, km);
+            d = __fmul_rn(d, km);
+          }
+          s[n][e] = pd;
+          dp[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, hi ? de.y : de.x)), a.scale);
+        }
+      }
+      uint32_t pa[QC / 16][4], sa[QC / 16][4];
+      c_to_a(pa, s);
+      c_to_a(sa, dp);
+      mma_pm<DH, QC / 16, LD>(dv, pa, dot + c0 * LD + d0);
+      mma_pm<DH, QC / 16, LD>(dk, sa, qt + c0 * LD + d0);
+    }
+    __syncthreads();
+  }
+  View<bf16> dko = a.dk, dvo = a.dv;  // the block's columns [d0, d0 + DH)
+  dko.p += d0;
+  dvo.p += d0;
+  const bool vout = flags & VEC_OUT;
+  store_acc<DH>(dko, dk, b, h, j0 + warp * 16, T_, D - d0, vout);
+  store_acc<DH>(dvo, dv, b, h, j0 + warp * 16, T_, D - d0, vout);
+}
+
 bool is_aligned(const void* p, unsigned bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 template <typename U>
@@ -1122,6 +1484,26 @@ cudaError_t bwd_mma(const Args<bf16>& a, cudaStream_t s) {
                                                   flags, s);
 }
 
+template <>
+cudaError_t fwd_mma<DW>(const Args<bf16>& a, cudaStream_t s) {
+  const size_t smem =
+      sizeof(bf16) * (size_t)(MQ + 2 * NS * MKW) * (DW + 8) + (a.mask ? NS * MQ * MASK_LDW : 0);
+  return launch_mma<attn_fwd_mma_wide_kernel>(dim3(a.B * a.H, (a.Tn + MQ - 1) / MQ), smem, a,
+                                              mma_flags(a, false), s);
+}
+
+template <>
+cudaError_t bwd_mma<DW>(const Args<bf16>& a, cudaStream_t s) {
+  constexpr size_t row = sizeof(bf16) * (DW + 8);
+  const int flags = mma_flags(a, true), nt = (a.Tn + MQ - 1) / MQ;  // MQ = MK
+  const size_t smem1 = row * (2 * MQ + 2 * NS * MKW) + (a.mask ? NS * MQ * MASK_LDW : 0);
+  const cudaError_t err = launch_mma<attn_bwd_dq_mma_wide_kernel>(dim3(a.B * a.H, nt), smem1, a, flags, s);
+  if (err != cudaSuccess) return err;
+  const size_t smem2 =
+      row * (2 * MK + 2 * NS * MQ) + sizeof(float) * NS * 3 * MQ + (a.mask ? NS * MQ * MASK_LDB : 0);
+  return launch_mma<attn_bwd_dkdv_mma_wide_kernel>(dim3(a.B * a.H, nt, DW / DH), smem2, a, flags, s);
+}
+
 template <typename T, int DC>
 cudaError_t fwd(const Args<T>& a, cudaStream_t s) {
   const int ld = a.D | 1;
@@ -1151,9 +1533,9 @@ cudaError_t bwd(const Args<T>& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// bf16 forwards and backwards with D <= 128 run on the tensor cores, DP
-// columns a tile. The rest run on the CUDA cores, with DC chunks of 32
-// columns per lane covering D (8 <= D <= 256).
+// bf16 forwards and backwards run on the tensor cores, DP columns a tile
+// (DP = 256: the wide kernels). float32 runs on the CUDA cores, with DC
+// chunks of 32 columns per lane covering D (8 <= D <= 256).
 template <int N>
 using Int = std::integral_constant<int, N>;
 
@@ -1167,7 +1549,8 @@ cudaError_t dispatch(const Args<T>& a, bool backward, cudaStream_t s) {
     if (a.D <= 32) return mma(Int<32>());
     if (a.D <= 64) return mma(Int<64>());
     if (a.D <= 128) return mma(Int<128>());
-    return backward ? bwd<T, 8>(a, s) : fwd<T, 8>(a, s);
+    if (a.D <= 256) return mma(Int<256>());
+    return cudaErrorInvalidValue;  // past the gate (the wrapper raises first)
   } else {
     const auto cores = [&](auto dc) {
       return backward ? bwd<T, decltype(dc)::value>(a, s) : fwd<T, decltype(dc)::value>(a, s);

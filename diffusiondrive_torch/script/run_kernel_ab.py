@@ -12,8 +12,9 @@ kernel, after one untimed pass over the first row). Every result is first
 held against its own checkout's plain version (`chip_smoke.TOL`).
 
 `--kernel attention` (the default; `phase_attention`): the fused attention
-forward and backward at B=64, H=4, T=320, D = 16, 32, 64, 128, bf16 and
-float32, without and with a p=0.1 keep mask. `--kernel conv3x3`
+forward and backward at B=64, H=4, T=320, D = 16, 32, 64, 128 (`ATTN_D`,
+the fusion stages, summed) and D = 256 (`ATTN_D_R50`, ResNet-50's stage 3,
+its own rows), bf16 and float32, without and with a p=0.1 keep mask. `--kernel conv3x3`
 (`phase_kernels`, `phase_conv3x3_train`): the eval conv3x3 at B=16
 (`CONV_EVAL`, with and without the residual, ReLU on) and the
 `conv3x3_train` forward and input gradient at B=64 (`CONV_TRAIN`), bf16
@@ -27,8 +28,8 @@ uniform cloud); exact against the plain version, the same bits twice.
 
 Prints the card's name and power limit, then one JSON line per run: the
 kernel ms of each row (attention: summed over D for each direction, dtype
-and variant). `--out` gets one JSON line per run and row, with the three
-repeats.
+and variant, the stages and D = 256 apart). `--out` gets one JSON line per
+run and row, with the three repeats.
 
 Example (one GPU; the parent commit unpacked into a gitignored directory):
     mkdir -p diffusiondrive_torch/_build/parent
@@ -82,8 +83,9 @@ def attention_cases(smoke, dev, root: Path):
         raise RuntimeError(f"imported {af.__file__}, not the checkout at {root}")
     B, H, T = smoke.ATTN_BHT
     gen, mask_gen = torch.Generator().manual_seed(4), torch.Generator(device=dev)
-    for D in smoke.ATTN_D:
+    for D in smoke.ATTN_D + smoke.ATTN_D_R50:
         base = [torch.randn(B, T, H, D, generator=gen) for _ in range(4)]
+        group = "stages" if D in smoke.ATTN_D else f"d{D}"
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (t.to(dev, dtype).transpose(1, 2) for t in base)
             for pdrop in (0.0, 0.1):
@@ -97,7 +99,7 @@ def attention_cases(smoke, dev, root: Path):
                 for name, g, w in zip(("dq", "dk", "dv"), fns["bwd"](),
                                       af.attention_bwd_plain(q, k, v, mask, do, pdrop)):
                     smoke.check_close(f"attention_bwd {name} {tag}", g, w, smoke.TOL[dtype])
-                yield {"dtype": str(dtype).replace("torch.", ""), "variant": variant, "D": D}, fns
+                yield {"dtype": str(dtype).replace("torch.", ""), "variant": variant, "group": group, "D": D}, fns
 
 
 def conv3x3_cases(smoke, dev, root: Path):

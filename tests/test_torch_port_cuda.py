@@ -11,7 +11,8 @@ import torch
 
 from diffusiondrive_torch.models.resnet import ResNetStem, _kernel_operands
 from diffusiondrive_torch.ops.attention_fused import (
-    attention_bwd_plain, attention_fwd_plain, dropout_keep_mask, fused_attention, fused_attention_bwd)
+    attention_bwd_plain, attention_fwd_plain, backward_kernel, dropout_keep_mask, forward_kernel, fused_attention,
+    fused_attention_bwd)
 from diffusiondrive_torch.ops.conv_fused import (
     conv3x3_kernel, conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 from diffusiondrive_torch.ops.hungarian import batched_linear_sum_assignment, linear_sum_assignment_plain
@@ -449,15 +450,18 @@ def _attention_inputs(B, H, T, D, dtype, masked, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33),
-                                     (2, 4, 320, 16), (2, 4, 320, 128), (1, 2, 504, 128)])
+                                     (2, 4, 320, 16), (2, 4, 320, 128), (1, 2, 504, 128),
+                                     (2, 3, 8, 129), (3, 4, 320, 192), (1, 1, 512, 256)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T, D, masked):
     """The forward and backward kernels against their plain versions at odd
-    shapes the gate takes (T = 8, 24, 504; D = 8, 33, 256) and at the
-    fusion blocks' T = 320 with the first and last stage's D (16, 128), q,
-    k, v and dO read as (B, T, H, D) views, with and without a p = 0.25
-    keep mask. bf16 with D <= 128 runs the tensor-core kernels (T = 504,
-    D = 128: the largest tiles and the longest key loop), D = 256 and
+    shapes the gate takes (T = 8, 24, 504, 512; D = 8, 33, 129, 256) and at
+    the fusion blocks' T = 320 with the first and last stage's D (16, 128)
+    and a padded wide one (192), q, k, v and dO read as (B, T, H, D) views,
+    with and without a p = 0.25 keep mask. bf16 runs the tensor-core
+    kernels (T = 504, D = 128: the largest DP = 128 tiles and the longest
+    key loop; D = 129..256 the wide kernels at DP = 256, with T tails of 8
+    and 24 keys past a 32-key tile and a whole last tile at T = 512),
     float32 the CUDA-core ones. Tolerances as in `chip_smoke.py`: float32
     sums in another order; bf16 probabilities and score gradients rounded to
     bf16 on either side of a last-bit difference, and every bf16 result also
@@ -487,12 +491,14 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dtype, tol):
+@pytest.mark.parametrize("D", [64, 256])
+def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dtype, tol, D):
     """The backward kernels (bf16 on the tensor cores, float32 on the CUDA
-    cores) at one fixed fusion-block input, (2, 4, 320, 64) with a keep
-    mask: dq, dk and dv within the plain versions' limits, bf16 also within
-    2 bf16 ulps, and the same bits in a second call (no atomics)."""
-    q, k, v, do, mask, pdrop = _attention_inputs(2, 4, 320, 64, dtype, True, cuda_device, 64)
+    cores) at one fixed fusion-block input, (2, 4, 320, D) with a keep
+    mask, D = 64 and ResNet-50's stage-3 D = 256: dq, dk and dv within the
+    plain versions' limits, bf16 also within 2 bf16 ulps, and the same bits
+    in a second call (no atomics)."""
+    q, k, v, do, mask, pdrop = _attention_inputs(2, 4, 320, D, dtype, True, cuda_device, D)
     got = fused_attention_bwd(q, k, v, mask, do, pdrop)
     again = fused_attention_bwd(q, k, v, mask, do, pdrop)
     torch.cuda.synchronize()
@@ -501,6 +507,25 @@ def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dt
         if dtype == torch.bfloat16:
             _within_2_bf16_ulps(g1, want, name)
         torch.testing.assert_close(g1, g2, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 200])
+def test_cuda_attention_launches_the_kernels_its_path_names(cuda_device, dtype, D):
+    """`forward_kernel` / `backward_kernel` against the kernels the profiler
+    sees: bf16 D = 64 the DP <= 128 tensor-core kernels, bf16 D = 200 the
+    wide ones (never the CUDA-core kernels), float32 the CUDA-core ones."""
+    q, k, v, do, mask, pdrop = _attention_inputs(2, 2, 64, D, dtype, True, cuda_device, D)
+    fwd = _kernel_names(lambda: fused_attention(q, k, v, mask, pdrop))
+    bwd = _kernel_names(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop))
+    assert forward_kernel(dtype, D) == backward_kernel(dtype, D)
+    suffix = {"cuda_core": "_kernel", "mma": "_mma_wide_kernel" if D > 128 else "_mma_kernel"}[
+        forward_kernel(dtype, D)]
+    assert any(f"attn_fwd{suffix}" in n for n in fwd) and len(fwd) == 1, fwd
+    for part in ("dq", "dkdv"):
+        assert any(f"attn_bwd_{part}{suffix}" in n for n in bwd), bwd
+    assert len(bwd) == 2, bwd
 
 
 @pytest.mark.cuda
