@@ -13,7 +13,9 @@ line per phase, then one JSON line per kernel summary, then the result:
                four instantiations (DP = 16, 32, 64, 128) of every
                tensor-core attention kernel (`MMA_KERNELS`: the forward and
                the backward's two launches) and for their three DP = 256
-               counterparts (`WIDE_MMA_KERNELS`), each of the four (residual,
+               counterparts (`WIDE_MMA_KERNELS`), the five (DP = 16 ... 256)
+               of each float32 3xTF32 attention kernel (`TF32_KERNELS`),
+               each of the four (residual,
                ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`)
                and each of the four (C = 1..4) of the tensor-core stem
                kernel (`STEM_MMA_KERNEL`), and for the LAP and splat
@@ -30,8 +32,10 @@ line per phase, then one JSON line per kernel summary, then the result:
                `library_conv_ms` is the bare `F.conv2d`), timed beside
                the plain version, a library yardstick (`library_ms`, never
                used by the port) and the card's bound for the same work
-               (`bound_ms`). Every time in a kernel row comes from one timer,
-               `time_rows`: the median of 3 repeats, each the device time of
+               (`bound_ms`; float32's operations at the lesser of the f32
+               FMA rate and three TF32 products a product). Every time in a
+               kernel row comes from one timer, `time_rows`: the median of 3
+               repeats, each the device time of
                launches queued behind a spin kernel (`queued_ms`: not the
                host's launch rate), the three beside it as `*_runs`.
                ``kernel attention_fwd`` / ``attention_bwd`` (the fused
@@ -39,8 +43,9 @@ line per phase, then one JSON line per kernel summary, then the result:
                stage's D = 16, 32, 64, 128, and ResNet-50's stage-3 D = 256
                (bf16 on the wide tensor-core kernels), bf16 and f32, without
                and with a p=0.1 keep mask; `path` names the kernel that ran,
-               "mma" (bf16, tensor cores) or "cuda_core" (f32), and bf16 rows
-               carry its ptxas registers and spill bytes; library:
+               "mma" (bf16 products) or "mma_tf32x3" (f32 in three TF32
+               products), both on the tensor cores, and every row carries
+               its kernels' ptxas registers and spill bytes; library:
                `scaled_dot_product_attention` unmasked with its backend
                pinned, `SDPA_BACKEND`; one untimed pass over the first row
                first) and ``kernel conv3x3_train`` (its forward and input
@@ -265,6 +270,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor cores (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Tolerances are relative: the limit on max |got - want| is tol * max(1, max |want|).
@@ -352,8 +358,16 @@ def time_rows(fns: dict, iters: int = 10, warmup: int = 3) -> dict:
 
 
 def bound_ms(flops: float, nbytes: float, dtype: torch.dtype):
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    """(the least time the card could take for `flops` operations and `nbytes`
+    bytes in `dtype`, ms; "operations" or "bytes", whichever binds). bf16
+    operations at the bf16 tensor-core rate; float32 operations at float32
+    accuracy, whichever way is faster: f32 FMAs outside the tensor cores, or
+    three TF32 tensor-core products a product (3xTF32)."""
+    if dtype == torch.bfloat16:
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    else:
+        t_ops = min(flops / PEAK_F32_FLOPS, 3.0 * flops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -398,6 +412,9 @@ def phase_device() -> str:
 MMA_KERNELS = ("attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel")
 # their counterparts at DP = 256 (bf16 with 128 < D <= 256), no templates
 WIDE_MMA_KERNELS = ("attn_fwd_mma_wide_kernel", "attn_bwd_dq_mma_wide_kernel", "attn_bwd_dkdv_mma_wide_kernel")
+# the float32 attention kernels (3xTF32 on the tensor cores), each built for DP = 16, 32, 64, 128, 256
+TF32_KERNELS = ("attn_fwd_tf32x3_kernel", "attn_bwd_dq_tf32x3_kernel", "attn_bwd_dkdv_tf32x3_kernel")
+TF32_DP = (16, 32, 64, 128, 256)
 # the tensor-core conv3x3 kernel of `csrc/conv3x3_fused.cu`, built for (RES, RELU) in {0, 1}^2
 CONV_MMA_KERNEL = "conv3x3_mma_kernel"
 # the tensor-core stem kernel of `csrc/stem_fused.cu`, built for C = 1, 2, 3, 4
@@ -445,16 +462,22 @@ def phase_build() -> dict:
              for ln in text.splitlines() if "registers" in ln or "spill" in ln]
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
     wide = {k: ptxas_stats(logs["attention_fused"], k).get("") for k in WIDE_MMA_KERNELS}
+    tf32 = {k: ptxas_stats(logs["attention_fused"], k) for k in TF32_KERNELS}
     conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
     stem = {STEM_MMA_KERNEL: ptxas_stats(logs["stem_fused"], STEM_MMA_KERNEL)}
     single = {k: ptxas_stats(logs[src], k).get("") for src, k in SINGLE_KERNELS.items()}
     log("build", seconds=round(time.time() - t0, 3), built=built,
         kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
-        attn_wide_regs_spills=wide, conv_mma_regs_spills=conv, stem_mma_regs_spills=stem, lap_splat_regs_spills=single)
+        attn_wide_regs_spills=wide, attn_tf32_regs_spills=tf32, conv_mma_regs_spills=conv, stem_mma_regs_spills=stem,
+        lap_splat_regs_spills=single)
     bad = {k: v for k, v in {**mma, **conv, **stem}.items()
            if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
     if bad:
         raise AssertionError(f"tensor-core kernels: want 4 instantiations each with 0 spill bytes, got {bad}")
+    bad = {k: v for k, v in tf32.items()
+           if sorted(v) != sorted(map(str, TF32_DP)) or any(st or ld for _, st, ld in v.values())}
+    if bad:
+        raise AssertionError(f"float32 attention kernels: want DP = {TF32_DP}, each with 0 spill bytes, got {bad}")
     bad = {k: v for k, v in {**wide, **single}.items() if v is None or v[1] or v[2]}
     if bad:
         raise AssertionError(f"wide attention, LAP and splat kernels: want 0 spill bytes each, got {bad}")
@@ -634,15 +657,19 @@ CONV_TRAIN = (("image", (64, 64, 256, 64)), ("lidar", (64, 64, 64, 64)))  # laye
 SDPA_BACKEND = {torch.bfloat16: SDPBackend.CUDNN_ATTENTION, torch.float32: SDPBackend.EFFICIENT_ATTENTION}
 
 
-def attention_regs_spills(logs: dict, backward: bool, D: int) -> dict:
+def attention_regs_spills(logs: dict, backward: bool, D: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from the
-    build's ptxas log for the bf16 tensor-core kernels a call at head width
-    D launches (`csrc/attention_fused.cu:dispatch`: DP = 16, 32, 64, 128,
-    or the wide kernels past 128)."""
-    if D > 128:
+    build's ptxas log for the tensor-core kernels a call at head width D
+    launches (`csrc/attention_fused.cu:dispatch`): bf16 at DP = 16, 32, 64,
+    128 or the wide kernels past 128; float32 the 3xTF32 kernels at DP = 16
+    ... 256."""
+    dp = str(next(n for n in TF32_DP if D <= n))
+    if dtype != torch.bfloat16:
+        kernels, key = TF32_KERNELS, dp
+    elif D > 128:
         kernels, key = WIDE_MMA_KERNELS, ""
     else:
-        kernels, key = MMA_KERNELS, str(next(n for n in (16, 32, 64, 128) if D <= n))
+        kernels, key = MMA_KERNELS, dp
     return {k: ptxas_stats(logs["attention_fused"], k).get(key) for k in (kernels[1:] if backward else kernels[:1])}
 
 
@@ -657,9 +684,10 @@ def phase_attention(dev, logs: dict) -> dict:
     unmasked (forward; forward and backward through autograd), never called
     by the port, its backend pinned (`SDPA_BACKEND`). Times: `time_rows`,
     after one untimed pass over the first row.
-    Bound: the forward's 4·B·H·T²·D flops and its q, k, v, o (and mask)
-    bytes; the backward's 10·B·H·T²·D flops (the five products of a
-    recomputing backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
+    Bound (`bound_ms`; float32 at the lesser of f32 FMAs and 3xTF32): the
+    forward's 4·B·H·T²·D flops and its q, k, v, o (and mask) bytes; the
+    backward's 10·B·H·T²·D flops (the five products of a recomputing
+    backward) and its q, k, v, dO, dq, dk, dv (and mask)."""
     from diffusiondrive_torch.ops.attention_fused import (
         attention_bwd_plain, attention_fwd_plain, backward_kernel, dropout_keep_mask, forward_kernel,
         fused_attention, fused_attention_bwd)
@@ -705,7 +733,7 @@ def phase_attention(dev, logs: dict) -> dict:
                 row = dict(shape=[B, H, T, D], dtype=str(dtype), variant=variant,
                            path=forward_kernel(dtype, D), max_abs_err=err, limit=limit, ulp_limit=ulps,
                            **time_rows(fwd_fns), library_backend=backend.name.lower(), bound_ms=bms, bound_by=by,
-                           regs_spills=attention_regs_spills(logs, False, D) if dtype == torch.bfloat16 else None)
+                           regs_spills=attention_regs_spills(logs, False, D, dtype))
                 log(f"kernel attention_fwd d{D} {variant}", **row)
                 summary[("attention_fwd", D, variant, dtype)] = row
 
@@ -725,8 +753,7 @@ def phase_attention(dev, logs: dict) -> dict:
                            path=backward_kernel(dtype, D), max_abs_err=max(e for e, _ in errs.values()),
                            errors={n: e for n, (e, _) in errs.items()}, limits={n: l for n, (_, l) in errs.items()},
                            ulp_limits=ulps, **time_rows(bwd_fns), library_backend=backend.name.lower(),
-                           bound_ms=bms, bound_by=by,
-                           regs_spills=attention_regs_spills(logs, True, D) if dtype == torch.bfloat16 else None)
+                           bound_ms=bms, bound_by=by, regs_spills=attention_regs_spills(logs, True, D, dtype))
                 log(f"kernel attention_bwd d{D} {variant}", **row)
                 summary[("attention_bwd", D, variant, dtype)] = row
     return summary

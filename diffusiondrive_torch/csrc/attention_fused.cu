@@ -15,18 +15,25 @@
 // the bound (about 120 flop/B against the ~295 the card needs before
 // compute binds); at D=16 the mask is 3/4 of the bytes. The backward does
 // 2.5x the forward's flops over 1.75x its bytes, also memory-bound; D=256
-// doubles both.
+// doubles both. float32 at float32 accuracy costs three TF32 products a
+// product (below): operations bind it, 3 x 13.4 GFLOP over 495 TFLOP/s (81
+// us) against 194 MB (58 us) for that forward.
 //
-// Forward kernels:
-// - bf16 with D <= 128 (every fusion stage): `attn_fwd_mma_kernel`, on the
-//   tensor cores. Multiplying on the CUDA cores in f32 (the kernel below)
-//   ran 82x the bound at D=128: q.k^T issued 5 shared loads per 4 FMAs and
-//   p.v left lanes idle at D <= 32. Here q.k^T and p.v are
-//   mma.sync.m16n8k16 bf16 products with f32 accumulation. A block owns
-//   one (batch, head) and 64 query rows, 16 per warp, held as A fragments
-//   (D zero-padded to DP = 16, 32, 64 or 128). K (pass 1) and K, V and the
-//   mask (pass 2) stream through shared memory in 64-key tiles, double
-//   buffered with cp.async, and reach the products by ldmatrix (.trans for
+// Every kernel is mma.sync on the tensor cores. A block owns one (batch,
+// head) and 64 query rows (forward, backward launch 1) or 64 keys (launch
+// 2), 16 a warp, with D zero-padded to DP = 16, 32, 64, 128 or 256; the
+// other operand streams through shared memory in tiles by cp.async, double
+// buffered (one exception: the float32 forward at DP = 256). Operands are
+// read through (batch, head, token) strides with a contiguous last
+// dimension, so q, k, v and dO come straight from the (B, T, H, D) Linear
+// outputs. Every kernel launches on the caller's stream and allocates
+// nothing.
+//
+// bf16 forward:
+// - D <= 128 (every fusion stage): `attn_fwd_mma_kernel`. q.k^T and p.v are
+//   mma.sync.m16n8k16 bf16 products with f32 accumulation; the warp's Q rows
+//   are held as A fragments. K (pass 1) and K, V and the mask (pass 2)
+//   stream in 64-key tiles and reach the products by ldmatrix (.trans for
 //   V). Pass 1 keeps each row's running max and sum in f32 (quad
 //   shuffles); pass 2 recomputes the scores bit for bit and forms the
 //   normalised, masked, bf16-rounded p straight from the accumulators (the
@@ -36,16 +43,13 @@
 //   not an online rescale of the output: the JAX kernel rounds the
 //   normalised p, and the recomputed q.k^T costs flops where bytes bind
 //   (K and V of one head, <= 80 KB each at T = 320, come back from L2).
-// - bf16 with 128 < D <= 256 (ResNet-50's stage 3): `attn_fwd_mma_wide_kernel`,
-//   the same two passes at DP = 256. Registers set the limit there (255 a
+// - 128 < D <= 256 (ResNet-50's stage 3): `attn_fwd_mma_wide_kernel`, the
+//   same two passes at DP = 256. Registers set the limit there (255 a
 //   thread, no spills): the 16 x 256 f32 output accumulator alone is 128 a
 //   thread, so the Q fragments (64 more) are read from shared memory at each
 //   k16 step instead of being held, and the key tiles shrink to 32 (16 score
 //   registers; Q, two K and two V tiles take 99 KB, 105 KB with the mask
 //   tiles, so two blocks share an SM).
-// - float32: the CUDA-core kernel `attn_fwd_kernel`, f32 FMAs, 16 query
-//   rows per block with their scores in shared memory. TF32 products would
-//   break float32's 1e-4 limit against the plain version.
 //
 // Backward designs, each two launches with the per-row statistics in a
 // (3, B*H*T) f32 scratch between them; dq is owned by query tiles, dk and
@@ -53,20 +57,19 @@
 // - bf16 with D <= 128: `attn_bwd_dq_mma_kernel` then
 //   `attn_bwd_dkdv_mma_kernel`, the forward's tensor-core machinery
 //   (ldmatrix, mma.sync, C fragments repacked as A fragments, cp.async
-//   tiles). The CUDA-core backward below ran 146x its bound summed over the
-//   fusion stages, slower than its own plain version. JAX's rounding points
-//   hold: p and dp = dO V^T in f32, delta = sum_j dp p with the unmasked
-//   p, pd and ds rounded to bf16 before their products (never
-//   FlashAttention's delta = rowsum(dO * O): the output is not kept, and
-//   its rounding would move ds). Launch 1 (64 query rows a block): pass 1
-//   over K, V and mask tiles keeps each row's max, sum and dp-weighted sum
-//   online; pass 2 recomputes s and dp and accumulates dq = ds K. Launch 2
-//   (64 keys a block): over query tiles, s^T = K Q^T and dp^T = V dO^T with
-//   the keys as rows, so pd^T and ds^T leave the C fragments as the A
-//   fragments of dv += pd^T dO and dk += ds^T Q; p^T from launch 1's
-//   statistics and the same exp. Ten tile products a score, against the
-//   forward's three; merging launch 1's passes would hold p and dp for the
-//   block in shared memory (160 KB at T = 320, too much at T = 512).
+//   tiles). JAX's rounding points hold: p and dp = dO V^T in f32,
+//   delta = sum_j dp p with the unmasked p, pd and ds rounded to bf16 before
+//   their products (never FlashAttention's delta = rowsum(dO * O): the
+//   output is not kept, and its rounding would move ds). Launch 1 (64 query
+//   rows a block): pass 1 over K, V and mask tiles keeps each row's max,
+//   sum and dp-weighted sum online; pass 2 recomputes s and dp and
+//   accumulates dq = ds K. Launch 2 (64 keys a block): over query tiles,
+//   s^T = K Q^T and dp^T = V dO^T with the keys as rows, so pd^T and ds^T
+//   leave the C fragments as the A fragments of dv += pd^T dO and
+//   dk += ds^T Q; p^T from launch 1's statistics and the same exp. Ten tile
+//   products a score, against the forward's three; merging launch 1's
+//   passes would hold p and dp for the block in shared memory (160 KB at
+//   T = 320, too much at T = 512).
 // - bf16 with 128 < D <= 256: `attn_bwd_dq_mma_wide_kernel` then
 //   `attn_bwd_dkdv_mma_wide_kernel`, the same two launches at DP = 256.
 //   Launch 1 reads the Q and dO fragments from shared memory per product
@@ -80,30 +83,63 @@
 //   is free) this one keeps the DP = 128 kernel's loaders, 128 threads and
 //   accumulator layout as they are; its price, s^T and dp^T computed twice,
 //   is tensor-core flops where bytes bind.
-// - float32: the CUDA-core kernels below.
 //
-// Design of the CUDA-core kernels: the TPU kernel held all heads of a
-// batch row with whole (T, T) f32 tiles in VMEM; a (320, 320) f32 score
-// matrix is 400 KB, above the 227 KB of shared memory a block may use, so
-// here a block owns one (batch, head) and a tile of query rows (forward and
-// dq pass) or key rows (dk/dv pass) and streams the other operand through
-// shared memory in tiles.
-// - forward: 16 query rows per block. Their scores against all T keys stay
-//   in shared memory (16 x T f32, <= 32 KB), get the exact two-pass row
-//   softmax, the mask and the rounding, and multiply V in 32-row tiles.
-// - backward, pass 1 (query tiles): recomputes p, computes dp = dO V^T and
-//   the row sums sum_j dp p, writes each row's max, sum and sum_j dp p to a
-//   (3, B*H*T) f32 scratch, and computes dq = ds K.
-// - backward, pass 2 (16 key rows per block): recomputes p for one 16 x 16
-//   block at a time from the saved row statistics, bit for bit as pass 1
-//   did (the same ordered FMA chains, every other product and difference
-//   rounded on its own, never contracted), and accumulates dk = ds^T Q and
-//   dv = p^T dO over all query tiles in registers. No atomics: the results
-//   are deterministic.
-// Operands are read through (batch, head, token) strides with a contiguous
-// last dimension, so q, k, v and dO come straight from the (B, T, H, D)
-// Linear outputs; each lane owns columns lane + 32c of D. Every kernel
-// launches on the caller's stream and allocates nothing.
+// float32, every D (`attn_fwd_tf32x3_kernel`, then `attn_bwd_dq_tf32x3_kernel`
+// and `attn_bwd_dkdv_tf32x3_kernel`, each templated on DP = 16 ... 256):
+// - Products in three TF32 parts (3xTF32, CUTLASS's OpMultiplyAddFastF32).
+//   One TF32 product (mma.m16n8k8.tf32) keeps 11 significant bits of each
+//   operand: a relative error of 2^-11 a term, so a score over D = 256
+//   terms, and the output after it, land near 1e-4 of their magnitude, the
+//   float32 limit against the plain version. Each operand is split instead
+//   (`ddt::split_tf32`): big = x rounded to TF32, to nearest with ties away
+//   from zero (cvt.rna's value), and small = x - big, exact in f32, which
+//   the mma truncates to TF32; the product is big.big + big.small +
+//   small.big in f32 (`ddt::mma_tf32x3`). x = big + small to 2^-22 |x| and
+//   the left-out small.small is below 2^-22 of the term, so each term keeps
+//   about 21 bits: errors against the plain version of 3e-6 to 2.5e-5 at
+//   D = 16 ... 256. The split is 3 instructions an element; with cvt.rna for
+//   both parts (4 instructions each, NaN checks included) the kernels ran
+//   1.2-1.4x slower, and rounding small instead of truncating it 1.04-1.1x.
+// - Fragments of 32-bit operands: the m16n8k8 C layout (row g, columns 2t,
+//   2t + 1) is not the A layout (columns t, t + 4), and ldmatrix moves only
+//   16-bit elements. The reduction index of p.v (and ds.K, pd^T.dO,
+//   ds^T.Q) is the key (query) index, so it is permuted within each k8
+//   step: k = t is key 2t, k = t + 4 key 2t + 1. The C fragment of a score
+//   tile is then the A fragment of the next product as it stands, and V's
+//   B fragment reads rows 2t and 2t + 1. Every operand is read by 32-bit
+//   shared loads from rows padded to DP + 4 floats: the fragments of q.k^T
+//   (g x LD + t) and the B fragments of p.v (2t x LD + g) hit 32 distinct
+//   banks. Each A fragment is split once a k8 step and reused across the
+//   n8 tiles; B fragments are split as they are read.
+// - Forward: one pass with an online softmax and the output rescaled at
+//   each key tile (FlashAttention's), where bf16 takes two passes. In
+//   float32 "rounded to q's dtype" is the identity, so the normalised p is
+//   never needed on its own; one pass computes q.k^T once instead of twice
+//   (a third of the forward's tensor work) and the rescale, 4 x DP / 8
+//   multiplies a thread a tile, is cheap beside it. The output is divided by
+//   the row sum at the end.
+// - Backward: the bf16 kernels' two launches, statistics and JAX formula,
+//   with the 3xTF32 products and the key permutation above. At DP = 256
+//   a block has two groups of 4 warps (`tf32_bwd_groups`): warps w and
+//   w + 4 share 16 rows (launch 1) or keys (launch 2), each reduces half of
+//   DP for s and dp, adds the other's partial fragments through shared
+//   memory, and accumulates its half of dq, or of dk and dv (128
+//   accumulators a thread for both). That computes s^T and dp^T once where
+//   the bf16 wide kernel splits D over the grid and computes them twice, and
+//   puts 8 warps on an SM, where 4 waited on the mma latency (D = 256
+//   backward 5.40 -> 2.90 ms).
+// - Tiles (`tf32_fwd_keys`, `tf32_bwd_tile`): keys of the forward 64 at
+//   DP <= 64, 32 at DP = 128, 16 single-buffered at DP = 256; keys of launch
+//   1 and queries of launch 2 64 / 32 / 16 at DP <= 32 / 64 / >= 128.
+//   float32 tiles are twice bf16's bytes, so these keep two blocks an SM at
+//   DP <= 128 and for the DP = 256 forward (Q and one 16-key K, V tile:
+//   101 KB; double-buffered 32-key tiles, 200 KB and one block, ran 1.25x
+//   slower); the DP = 256 backward launches take 218 KB with their 8 warps.
+//   At DP = 256 the k8 loop of the score products unrolls by 4 only:
+//   unrolled whole, the kernels outgrew the instruction cache (the forward
+//   ran 1.5x and the backward 1.8x slower).
+// - Rows that are not 16-byte aligned (D % 4 != 0, odd strides) are copied
+//   by 4-byte cp.async (`mma_flags`).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -112,22 +148,9 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "common.cuh"
 #include "mma.cuh"
 
 namespace {
-
-using ddt::from_f;
-using ddt::to_f;
-
-constexpr int QT = 16;         // query rows per block (forward, pass 1)
-constexpr int KT = 32;         // key rows per streamed tile (forward, pass 1)
-constexpr int NT = 128;        // 4 warps
-constexpr int RPW = QT / 4;    // query rows per warp
-constexpr int KT2 = 16;        // key rows per block (pass 2)
-constexpr int QT2 = 16;        // query rows per streamed tile (pass 2)
-constexpr int NT2 = QT2 * KT2; // 8 warps: one (query, key) entry per thread
-constexpr int RPW2 = KT2 / 8;  // key rows per warp
 
 template <typename U>
 struct View {
@@ -148,310 +171,6 @@ struct Args {
   float scale, inv_keep;
 };
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows [r0, r0 + n) of one head's (T, D) matrix into dst[ROWS][ld] as f32;
-// rows n..ROWS-1 become zero.
-template <typename T, int ROWS, int THREADS>
-__device__ void load_tile(float* dst, int ld, const View<const T>& m, int b, int h, int r0, int n,
-                          int D) {
-  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
-    const int r = e / D, d = e - r * D;
-    dst[r * ld + d] = r < n ? to_f(m.row(b, h, r0 + r)[d]) : 0.f;
-  }
-}
-
-// out[i][j] = (sum_d a[i][d] * M[j][d]) * scale for the QT rows of `a` and
-// all T rows of M, one KT-row tile of M at a time through `ts`. Lane j of
-// warp w computes rows w, w+4, w+8, w+12; the sum runs over d in order.
-template <typename T>
-__device__ void row_products(float* out, const float* a, float* ts, const View<const T>& m, int b,
-                             int h, int T_, int D, int ld, float scale) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j0 = 0; j0 < T_; j0 += KT) {
-    const int nk = min(KT, T_ - j0);
-    __syncthreads();  // the previous tile is consumed, `a` is loaded
-    load_tile<T, KT, NT>(ts, ld, m, b, h, j0, nk, D);
-    __syncthreads();
-    if (lane < nk) {
-      float acc[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) acc[r] = 0.f;
-      const float* mr = ts + lane * ld;
-      for (int d = 0; d < D; ++d) {
-        const float x = mr[d];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) acc[r] = fmaf(a[(warp + 4 * r) * ld + d], x, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) out[(warp + 4 * r) * T_ + j0 + lane] = __fmul_rn(acc[r], scale);
-    }
-  }
-  __syncthreads();
-}
-
-// acc[r][c] = sum_j P[w + 4r][j] * M[j][lane + 32c] over all T rows of M,
-// streamed through `ts` in KT-row tiles.
-template <typename T, int DC>
-__device__ void rows_times(float (&acc)[RPW][DC], const float* P, float* ts, const View<const T>& m,
-                           int b, int h, int T_, int D, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  for (int j0 = 0; j0 < T_; j0 += KT) {
-    const int nk = min(KT, T_ - j0);
-    __syncthreads();
-    load_tile<T, KT, NT>(ts, ld, m, b, h, j0, nk, D);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float* mr = ts + j * ld;
-      float x[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        x[c] = d < D ? mr[d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float pv = P[(warp + 4 * r) * T_ + j0 + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pv, x[c], acc[r][c]);
-      }
-    }
-  }
-}
-
-template <typename T, int DC>
-__device__ void store_rows(const View<T>& out, float (&acc)[RPW][DC], int b, int h, int i0,
-                           int nq, int D) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + 4 * r;
-    if (i >= nq) continue;
-    T* o = out.row(b, h, i0 + i);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) o[d] = from_f<T>(acc[r][c]);
-    }
-  }
-}
-
-// Exact two-pass softmax of row i of `s` (in place: e = exp(s - max));
-// returns (max, sum) for lane use. Warp-uniform.
-__device__ __forceinline__ float2 row_softmax_stats(float* row, int T_) {
-  const int lane = threadIdx.x & 31;
-  float m = -__int_as_float(0x7f800000);
-  for (int j = lane; j < T_; j += 32) m = fmaxf(m, row[j]);
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < T_; j += 32) {
-    const float e = expf(__fsub_rn(row[j], m));
-    row[j] = e;
-    l += e;
-  }
-  return make_float2(m, warp_sum(l));
-}
-
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT) attn_fwd_kernel(Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int T_ = a.Tn, D = a.D, ld = D | 1;  // odd row stride: no bank conflicts
-  float* qs = smem;                          // [QT][ld]
-  float* ss = qs + QT * ld;                  // [QT][T]: scores, then probabilities
-  float* ts = ss + QT * T_;                  // [KT][ld]: a K tile, then a V tile
-  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
-  const int i0 = blockIdx.y * QT, nq = min(QT, T_ - i0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  load_tile<T, QT, NT>(qs, ld, a.q, b, h, i0, nq, D);
-  row_products<T>(ss, qs, ts, a.k, b, h, T_, D, ld, a.scale);
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + 4 * r;
-    if (i >= nq) continue;
-    float* row = ss + i * T_;
-    const float l = row_softmax_stats(row, T_).y;
-    const unsigned char* keep = a.mask ? a.mask + ((size_t)bh * T_ + i0 + i) * T_ : nullptr;
-    for (int j = lane; j < T_; j += 32) {
-      float p = row[j] / l;
-      if (keep) p = keep[j] ? __fmul_rn(p, a.inv_keep) : 0.f;
-      row[j] = round_to<T>(p);
-    }
-  }
-
-  float acc[RPW][DC];
-  rows_times<T, DC>(acc, ss, ts, a.v, b, h, T_, D, ld);
-  store_rows<T, DC>(a.o, acc, b, h, i0, nq, D);
-}
-
-// Pass 1 of the backward: per query tile, p, dp = dO V^T (masked),
-// delta = sum_j dp * p, ds = p * (dp - delta) * scale rounded to T, the
-// row statistics to `stats`, and dq = ds K.
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int T_ = a.Tn, D = a.D, ld = D | 1;
-  float* qs = smem;                 // [QT][ld]
-  float* dos = qs + QT * ld;        // [QT][ld]
-  float* ps = dos + QT * ld;        // [QT][T]: scores, then p
-  float* ds = ps + QT * T_;         // [QT][T]: dO V^T, then ds
-  float* ts = ds + QT * T_;         // [KT][ld]
-  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
-  const int i0 = blockIdx.y * QT, nq = min(QT, T_ - i0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t N = (size_t)a.B * a.H * T_;
-
-  load_tile<T, QT, NT>(qs, ld, a.q, b, h, i0, nq, D);
-  load_tile<T, QT, NT>(dos, ld, a.dout, b, h, i0, nq, D);
-  row_products<T>(ps, qs, ts, a.k, b, h, T_, D, ld, a.scale);
-  row_products<T>(ds, dos, ts, a.v, b, h, T_, D, ld, 1.f);
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + 4 * r;
-    if (i >= nq) continue;
-    float* prow = ps + i * T_;
-    float* drow = ds + i * T_;
-    const float2 ml = row_softmax_stats(prow, T_);
-    const size_t row = (size_t)bh * T_ + i0 + i;
-    const unsigned char* keep = a.mask ? a.mask + row * T_ : nullptr;
-    float delta = 0.f;
-    for (int j = lane; j < T_; j += 32) {
-      const float p = prow[j] / ml.y;
-      float dp = drow[j];
-      if (keep) dp = keep[j] ? __fmul_rn(dp, a.inv_keep) : 0.f;
-      prow[j] = p;
-      drow[j] = dp;
-      delta = fmaf(dp, p, delta);
-    }
-    delta = warp_sum(delta);
-    for (int j = lane; j < T_; j += 32)
-      drow[j] = round_to<T>(__fmul_rn(__fmul_rn(prow[j], __fsub_rn(drow[j], delta)), a.scale));
-    if (lane == 0) {
-      a.stats[row] = ml.x;
-      a.stats[N + row] = ml.y;
-      a.stats[2 * N + row] = delta;
-    }
-  }
-
-  float acc[RPW][DC];
-  rows_times<T, DC>(acc, ds, ts, a.k, b, h, T_, D, ld);
-  store_rows<T, DC>(a.dq, acc, b, h, i0, nq, D);
-}
-
-// Pass 2 of the backward: per tile of KT2 key rows, over all query tiles,
-// dv = (masked p rounded)^T dO and dk = ds^T Q, p recomputed from pass 1's
-// row statistics exactly as pass 1 computed it.
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT2) attn_bwd_dkdv_kernel(Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int T_ = a.Tn, D = a.D, ld = D | 1;
-  float* ks = smem;                 // [KT2][ld]
-  float* vs = ks + KT2 * ld;        // [KT2][ld]
-  float* qs = vs + KT2 * ld;        // [QT2][ld]
-  float* dos = qs + QT2 * ld;       // [QT2][ld]
-  float* pb = dos + QT2 * ld;       // [QT2][KT2]: masked p, rounded
-  float* db = pb + QT2 * KT2;       // [QT2][KT2]: ds, rounded
-  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
-  const int j0 = blockIdx.y * KT2, nk = min(KT2, T_ - j0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ei = tid / KT2, ej = tid - ei * KT2;
-  const size_t N = (size_t)a.B * a.H * T_;
-
-  load_tile<T, KT2, NT2>(ks, ld, a.k, b, h, j0, nk, D);
-  load_tile<T, KT2, NT2>(vs, ld, a.v, b, h, j0, nk, D);
-  float dk[RPW2][DC], dv[RPW2][DC];
-#pragma unroll
-  for (int r = 0; r < RPW2; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[r][c] = dv[r][c] = 0.f;
-
-  for (int i0 = 0; i0 < T_; i0 += QT2) {
-    const int nq = min(QT2, T_ - i0);
-    __syncthreads();  // the previous block is consumed
-    load_tile<T, QT2, NT2>(qs, ld, a.q, b, h, i0, nq, D);
-    load_tile<T, QT2, NT2>(dos, ld, a.dout, b, h, i0, nq, D);
-    __syncthreads();
-    float pv = 0.f, sv = 0.f;
-    if (ei < nq && ej < nk) {
-      const float* qr = qs + ei * ld;
-      const float* kr = ks + ej * ld;
-      const float* dr = dos + ei * ld;
-      const float* vr = vs + ej * ld;
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      for (int d = 0; d < D; ++d) dp = fmaf(dr[d], vr[d], dp);
-      s = __fmul_rn(s, a.scale);
-      const size_t row = (size_t)bh * T_ + i0 + ei;
-      const float p = expf(__fsub_rn(s, a.stats[row])) / a.stats[N + row];
-      float pd = p;
-      if (a.mask) {
-        const bool keep = a.mask[row * T_ + j0 + ej] != 0;
-        pd = keep ? __fmul_rn(p, a.inv_keep) : 0.f;
-        dp = keep ? __fmul_rn(dp, a.inv_keep) : 0.f;
-      }
-      pv = round_to<T>(pd);
-      sv = round_to<T>(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, a.stats[2 * N + row])), a.scale));
-    }
-    pb[ei * KT2 + ej] = pv;
-    db[ei * KT2 + ej] = sv;
-    __syncthreads();
-    for (int i = 0; i < nq; ++i) {
-      float qx[DC], dx[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        qx[c] = d < D ? qs[i * ld + d] : 0.f;
-        dx[c] = d < D ? dos[i * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < RPW2; ++r) {
-        const int j = warp + 8 * r;
-        const float pj = pb[i * KT2 + j], sj = db[i * KT2 + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv[r][c] = fmaf(pj, dx[c], dv[r][c]);
-          dk[r][c] = fmaf(sj, qx[c], dk[r][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW2; ++r) {
-    const int j = warp + 8 * r;
-    if (j >= nk) continue;
-    T* dkr = a.dk.row(b, h, j0 + j);
-    T* dvr = a.dv.row(b, h, j0 + j);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dkr[d] = from_f<T>(dk[r][c]);
-        dvr[d] = from_f<T>(dv[r][c]);
-      }
-    }
-  }
-}
-
 // ---- bf16 forward on the tensor cores ----
 
 using bf16 = __nv_bfloat16;
@@ -467,56 +186,85 @@ constexpr int VEC_MASK = 2;   //        mask rows by 8-byte cp.async
 constexpr int VEC_OUT = 4;    //        output column pairs as bf16x2
 
 using ddt::cp_async16;
+using ddt::cp_async4;
 using ddt::cp_async8;
 using ddt::cp_async_commit;
 using ddt::cp_async_wait;
 using ddt::ldsm_x4;
 using ddt::ldsm_x4_trans;
 using ddt::mma_bf16;
+using ddt::mma_tf32x3;
 using ddt::pack_bf16;
 using ddt::smem_u32;
+using ddt::split_tf32;
 
-// Rows [r0, r0 + ROWS) of one head's (T, D) matrix into a [ROWS][DP + 8] tile;
+// Rows [r0, r0 + ROWS) of one head's (T, D) matrix into a [ROWS][DP + EPC]
+// tile (EPC: elements per 16 bytes; bf16 rows DP + 8, float32 DP + 4);
 // rows past T and columns past D become zero. With VEC_QKV by 16-byte
-// cp.async (D % 8 == 0, 16-byte aligned rows), else by element loads.
-template <int DP, int ROWS = MK>
-__device__ __forceinline__ void load_rows(bf16* dst, const View<const bf16>& m, int b, int h, int r0,
-                                          int T_, int D, bool vec) {
-  constexpr int LD = DP + 8, CPR = DP / 8;
+// cp.async (D % EPC == 0, 16-byte aligned rows), else element by element:
+// bf16 by loads and stores, float32 by 4-byte cp.async.
+template <int DP, int ROWS = MK, int NT = MNT, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const View<const T>& m, int b, int h, int r0, int T_, int D,
+                                          bool vec) {
+  constexpr int EPC = 16 / sizeof(T), LD = DP + EPC, CPR = DP / EPC, N = ROWS * CPR;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < ROWS * CPR / MNT; ++it) {
-      const int e = threadIdx.x + it * MNT, r = e / CPR, c = (e - r * CPR) * 8;
+    for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+      const int e = threadIdx.x + it * NT, r = e / CPR, c = (e - r * CPR) * EPC;
+      if (N % NT != 0 && e >= N) break;
       const bool ok = r0 + r < T_ && c < D;
       cp_async16(smem_u32(dst + r * LD + c), ok ? m.row(b, h, r0 + r) + c : m.p, ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < ROWS * DP; e += MNT) {
+    for (int e = threadIdx.x; e < ROWS * DP; e += NT) {
       const int r = e / DP, c = e - r * DP;
-      dst[r * LD + c] = r0 + r < T_ && c < D ? m.row(b, h, r0 + r)[c] : __float2bfloat16(0.f);
+      const bool ok = r0 + r < T_ && c < D;
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(smem_u32(dst + r * LD + c), ok ? m.row(b, h, r0 + r) + c : m.p, ok ? 4 : 0);
+      } else {
+        dst[r * LD + c] = ok ? m.row(b, h, r0 + r)[c] : __float2bfloat16(0.f);
+      }
     }
   }
 }
 
-// The (64 query rows) x (KEYS keys) block of the keep mask at (i0, j0) of
-// head row `bh` into [64][LDM] bytes; outside T x T zero.
-template <int LDM = MASK_LD, int KEYS = MK>
+// The (ROWS query rows) x (KEYS keys) block of the keep mask at (i0, j0) of
+// head row `bh` into [ROWS][LDM] bytes; outside T x T zero.
+template <int LDM = MASK_LD, int KEYS = MK, int ROWS = MQ, int NT = MNT>
 __device__ __forceinline__ void load_mask(unsigned char* dst, const unsigned char* mask, int bh,
                                           int i0, int j0, int T_, bool vec) {
+  constexpr int N = ROWS * (KEYS / 8);  // 8-byte chunks
   const size_t base = (size_t)bh * T_ * T_;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < MQ * (KEYS / 8) / MNT; ++it) {
-      const int e = threadIdx.x + it * MNT, r = e / (KEYS / 8), c = (e - r * (KEYS / 8)) * 8;
+    for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+      const int e = threadIdx.x + it * NT, r = e / (KEYS / 8), c = (e - r * (KEYS / 8)) * 8;
+      if (N % NT != 0 && e >= N) break;
       const bool ok = i0 + r < T_ && j0 + c < T_;  // T % 8 == 0: a chunk is whole or out
       cp_async8(smem_u32(dst + r * LDM + c), ok ? mask + base + (size_t)(i0 + r) * T_ + j0 + c : mask,
                 ok ? 8 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < MQ * KEYS; e += MNT) {
+    for (int e = threadIdx.x; e < ROWS * KEYS; e += NT) {
       const int r = e / KEYS, c = e - r * KEYS;
       dst[r * LDM + c] = i0 + r < T_ && j0 + c < T_ ? mask[base + (size_t)(i0 + r) * T_ + j0 + c] : 0;
     }
+  }
+}
+
+// s (q k^T in the mma C layout for NB keys from j0) times scale; keys past T
+// get -inf.
+template <int NB>
+__device__ __forceinline__ void finish_scores(float (&s)[NB / 8][4], int j0, int T_, float scale) {
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+  if (j0 + NB > T_) {  // the last tile: keys past T (whole n8 tiles, T % 8 == 0) get -inf
+    const float ninf = -__int_as_float(0x7f800000);
+#pragma unroll
+    for (int n = 0; n < NB / 8; ++n)
+      if (j0 + n * 8 >= T_) s[n][0] = s[n][1] = s[n][2] = s[n][3] = ninf;
   }
 }
 
@@ -543,16 +291,7 @@ __device__ __forceinline__ void tile_scores(float (&s)[MK / 8][4], const uint32_
       mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
       mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
     }
-#pragma unroll
-  for (int n = 0; n < MK / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
-  if (j0 + MK > T_) {  // the last tile: keys past T (whole n8 tiles, T % 8 == 0) get -inf
-    const float ninf = -__int_as_float(0x7f800000);
-#pragma unroll
-    for (int n = 0; n < MK / 8; ++n)
-      if (j0 + n * 8 >= T_) s[n][0] = s[n][1] = s[n][2] = s[n][3] = ninf;
-  }
+  finish_scores<MK>(s, j0, T_, scale);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -805,25 +544,34 @@ __device__ __forceinline__ void apply_mask(float (&x)[NB / 8][4], const unsigned
 }
 
 // The warp's 16 rows of a 16 x DP accumulator to rows r0 + (0..15) of `out`
-// (rows past T and columns past D skipped); bf16x2 stores with VEC_OUT.
-template <int DP>
-__device__ __forceinline__ void store_acc(const View<bf16>& out, const float (&acc)[DP / 8][4], int b, int h,
+// (rows past T and columns past D skipped); column pairs (bf16x2, float2)
+// with VEC_OUT.
+template <int DP, typename T>
+__device__ __forceinline__ void store_acc(const View<T>& out, const float (&acc)[DP / 8][4], int b, int h,
                                           int r0, int T_, int D, bool vec) {
   const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + g + 8 * r;
     if (i >= T_) continue;
-    bf16* orow = out.row(b, h, i);
+    T* orow = out.row(b, h, i);
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int c = n * 8 + 2 * qd;
       if (c >= D) continue;
-      if (vec) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      const float x = acc[n][2 * r], y = acc[n][2 * r + 1];
+      if constexpr (std::is_same<T, float>::value) {
+        if (vec) {
+          *reinterpret_cast<float2*>(orow + c) = make_float2(x, y);
+        } else {
+          orow[c] = x;
+          if (c + 1 < D) orow[c + 1] = y;
+        }
+      } else if (vec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(x, y);
       } else {
-        orow[c] = __float2bfloat16(acc[n][2 * r]);
-        if (c + 1 < D) orow[c + 1] = __float2bfloat16(acc[n][2 * r + 1]);
+        orow[c] = __float2bfloat16(x);
+        if (c + 1 < D) orow[c + 1] = __float2bfloat16(y);
       }
     }
   }
@@ -963,15 +711,16 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dq_mma_kernel(Args<bf16> a, int 
 }
 
 // The per-query statistics (max log2 e, 1 / sum, delta) of rows
-// [row0, row0 + MQ) into dst[3][MQ] by 16-byte cp.async; rows at or past
+// [row0, row0 + ROWS) into dst[3][ROWS] by 16-byte cp.async; rows at or past
 // `n_rows` become zero, so padded queries get p = 0 and ds = 0.
+template <int ROWS = MQ>
 __device__ __forceinline__ void load_stats(float* dst, const float* stats, size_t N, size_t row0, int n_rows) {
-  constexpr int CH = MQ / 4;  // 16-byte chunks per statistic
+  constexpr int CH = ROWS / 4;  // 16-byte chunks per statistic
   const int e = threadIdx.x;
   if (e < 3 * CH) {
     const int k = e / CH, c = (e - k * CH) * 4;
     const bool ok = c < n_rows;  // T % 8 == 0: a chunk is whole or out
-    cp_async16(smem_u32(dst + k * MQ + c), ok ? stats + k * N + row0 + c : stats, ok ? 16 : 0);
+    cp_async16(smem_u32(dst + k * ROWS + c), ok ? stats + k * N + row0 + c : stats, ok ? 16 : 0);
   }
 }
 
@@ -1092,16 +841,7 @@ template <int NB>
 __device__ __forceinline__ void wide_scores(float (&s)[NB / 8][4], const bf16* qw, const bf16* kt, int j0, int T_,
                                             float scale) {
   mma_abt<DW, NB>(s, qw, kt);
-#pragma unroll
-  for (int n = 0; n < NB / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
-  if (j0 + NB > T_) {  // the last tile: keys past T (whole n8 tiles, T % 8 == 0) get -inf
-    const float ninf = -__int_as_float(0x7f800000);
-#pragma unroll
-    for (int n = 0; n < NB / 8; ++n)
-      if (j0 + n * 8 >= T_) s[n][0] = s[n][1] = s[n][2] = s[n][3] = ninf;
-  }
+  finish_scores<NB>(s, j0, T_, scale);
 }
 
 // The forward at 128 < D <= 256: `attn_fwd_mma_kernel`'s two passes over
@@ -1418,24 +1158,450 @@ __global__ void __launch_bounds__(MNT) attn_bwd_dkdv_mma_wide_kernel(Args<bf16> 
   store_acc<DH>(dvo, dv, b, h, j0 + warp * 16, T_, D - d0, vout);
 }
 
+// ---- float32 on the tensor cores: 3xTF32 ----
+
+// Tiles of the float32 kernels (the file header): keys a streamed tile of
+// the forward; keys a tile of backward launch 1 and queries of launch 2.
+__host__ __device__ constexpr int tf32_fwd_keys(int dp) { return dp <= 64 ? 64 : dp == 128 ? 32 : 16; }
+__host__ __device__ constexpr int tf32_fwd_bufs(int dp) { return dp > 128 ? 1 : NS; }  // K, V and mask tile buffers
+__host__ __device__ constexpr int tf32_bwd_tile(int dp) { return dp <= 32 ? 64 : dp == 64 ? 32 : 16; }
+// Warp groups of the backward: at DP = 256 two, each reducing and owning half of DP.
+__host__ __device__ constexpr int tf32_bwd_groups(int dp) { return dp > 128 ? 2 : 1; }
+// Mask row stride (bytes) of a 64-query tile of `keys` keys: the row-pair
+// u16 reads of `apply_mask` hit distinct banks across a warp.
+__host__ __device__ constexpr int tf32_mask_ld(int keys) {
+  return keys == 64 ? MASK_LD : keys == 32 ? MASK_LDW : 16;
+}
+
+// acc = A B^T (16 x NB, mma C layout) for the warp's 16 rows of `a` and rows
+// [0, NB) of `bt`, both [rows][LD] f32 tiles in shared memory, over DP
+// columns in 3xTF32: each k8 step splits its A fragment once and each B
+// fragment as it is read. At DP > 128 the k8 loop unrolls by 4 only (the
+// instruction cache: the file header).
+template <int DP, int NB, int LD = DP + 4>
+__device__ __forceinline__ void abt_tf32x3(float (&acc)[NB / 8][4], const float* a, const float* bt) {
+  constexpr int UNROLL = DP > 128 ? 4 : DP / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* ar = a + g * LD + t;
+  const float* br = bt + g * LD + t;
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll(UNROLL)
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    split_tf32(ar[kk * 8], ab[0], as[0]);               // row g, column t
+    split_tf32(ar[8 * LD + kk * 8], ab[1], as[1]);      // row g + 8, column t
+    split_tf32(ar[kk * 8 + 4], ab[2], as[2]);           // row g, column t + 4
+    split_tf32(ar[8 * LD + kk * 8 + 4], ab[3], as[3]);  // row g + 8, column t + 4
+#pragma unroll
+    for (int n = 0; n < NB / 8; ++n) {
+      uint32_t bb[2], bs[2];
+      split_tf32(br[n * 8 * LD + kk * 8], bb[0], bs[0]);      // B row 8n + g, column t
+      split_tf32(br[n * 8 * LD + kk * 8 + 4], bb[1], bs[1]);  // column t + 4
+      mma_tf32x3(acc[n], ab, as, bb, bs);
+    }
+  }
+}
+
+// acc (16 x DN) += P M in 3xTF32: P as KS k8 steps of C fragments (n8 tile kk
+// of a score tile: rows g, g + 8, keys 8kk + 2t, 8kk + 2t + 1), M the rows
+// [0, 8 KS) and columns [0, DN) of a [rows][LD] f32 tile. The reduction
+// index is permuted within each step (k = t is key 2t, k = t + 4 key
+// 2t + 1), so the A fragment is {c0, c2, c1, c3} and M's B fragment reads
+// rows 2t and 2t + 1.
+template <int DN, int KS, int LD>
+__device__ __forceinline__ void pm_tf32x3(float (&acc)[DN / 8][4], const float (&p)[KS][4], const float* m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* mr = m + 2 * t * LD + g;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[kk][0], ab[0], as[0]);  // row g, key 2t
+    split_tf32(p[kk][2], ab[1], as[1]);  // row g + 8, key 2t
+    split_tf32(p[kk][1], ab[2], as[2]);  // row g, key 2t + 1
+    split_tf32(p[kk][3], ab[3], as[3]);  // row g + 8, key 2t + 1
+    const float* mk = mr + kk * 8 * LD;
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) {
+      uint32_t bb[2], bs[2];
+      split_tf32(mk[n * 8], bb[0], bs[0]);       // M row 8kk + 2t, column 8n + g
+      split_tf32(mk[LD + n * 8], bb[1], bs[1]);  // row 8kk + 2t + 1
+      mma_tf32x3(acc[n], ab, as, bb, bs);
+    }
+  }
+}
+
+// With two warp groups (warps w and w + 4 share 16 rows, each having reduced
+// half of DP into s and dp): each adds the other's partial C fragments,
+// passed through `xs` (2 x NB / 2 floats a thread); the sum commutes, so the
+// two hold the same bits. The caller's next __syncthreads frees `xs`.
+template <int NB>
+__device__ __forceinline__ void add_partner_half(float (&s)[NB / 8][4], float (&dp)[NB / 8][4], float* xs) {
+  constexpr int F = NB / 2;  // floats of s (and of dp) a thread
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* mine = xs + warp * 2 * F * 32 + lane;
+  const float* theirs = xs + (warp ^ 4) * 2 * F * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(n * 4 + e) * 32] = s[n][e];
+      mine[(F + n * 4 + e) * 32] = dp[n][e];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] += theirs[(n * 4 + e) * 32];
+      dp[n][e] += theirs[(F + n * 4 + e) * 32];
+    }
+}
+
+// The float32 forward, one pass over KB-key tiles of K, V and the mask:
+// each row's running max m and sum l of exp(s - m), the output rescaled by
+// exp(m_old - m_new) at each tile and divided by l at the end.
+template <int DP>
+__global__ void __launch_bounds__(MNT) attn_fwd_tf32x3_kernel(Args<float> a, int flags) {
+  constexpr int LD = DP + 4, KB = tf32_fwd_keys(DP), LDM = tf32_mask_ld(KB), NBUF = tf32_fwd_bufs(DP);
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  float* qs = reinterpret_cast<float*>(smem_mma);  // [MQ][LD]
+  float* ks = qs + MQ * LD;                        // [NBUF][KB][LD]
+  float* vs = ks + NBUF * KB * LD;                 // [NBUF][KB][LD]
+  unsigned char* ms = reinterpret_cast<unsigned char*>(vs + NBUF * KB * LD);  // [NBUF][MQ][LDM]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int nkt = (T_ + KB - 1) / KB;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: K, V and mask tile t.
+  auto issue = [&](int t) {
+    if (t < nkt) {
+      const int buf = t % NBUF, j0 = t * KB;
+      load_rows<DP, KB>(ks + buf * KB * LD, a.k, b, h, j0, T_, D, vec);
+      load_rows<DP, KB>(vs + buf * KB * LD, a.v, b, h, j0, T_, D, vec);
+      if (a.mask) load_mask<LDM, KB>(ms + buf * MQ * LDM, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {  // prefetch stage t + NBUF - 1, then wait for stage t (and Q)
+    issue(t + NBUF - 1);
+    cp_async_wait<NBUF - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DP, MQ>(qs, a.q, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NBUF - 1; ++t) issue(t);
+  const float* qw = qs + warp * 16 * LD;
+  const int mrow = (warp * 16 + g) * LDM + 2 * qd;
+  float mx[2], l[2] = {0.f, 0.f}, o[DP / 8][4];
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    const int buf = t % NBUF;
+    float s[KB / 8][4];
+    abt_tf32x3<DP, KB>(s, qw, ks + buf * KB * LD);
+    finish_scores<KB>(s, t * KB, T_, a.scale);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E, corr = exp_shifted(mx[r], ml);  // the first tile: exp(-inf) = 0
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = exp_shifted(s[n][2 * r + c], ml);
+          s[n][2 * r + c] = e;
+          sum += e;
+        }
+      l[r] = l[r] * corr + sum;
+      mx[r] = m;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+    if (a.mask) apply_mask<KB, LDM>(s, ms + buf * MQ * LDM + mrow, a.inv_keep);
+    pm_tf32x3<DP, KB / 8, LD>(o, s, vs + buf * KB * LD);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv_l = 1.f / quad_sum(l[r]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      o[n][2 * r] *= inv_l;
+      o[n][2 * r + 1] *= inv_l;
+    }
+  }
+  store_acc<DP>(a.o, o, b, h, i0 + warp * 16, T_, D, flags & VEC_OUT);
+}
+
+// Launch 1 of the float32 backward: `attn_bwd_dq_mma_kernel`'s two passes
+// over KB-key tiles in 3xTF32, the warp's Q and dO rows read from shared
+// memory per product. With G = 2 warp groups (DP = 256) warps w and w + 4
+// share 16 query rows: each reduces half of DP for s and dp, adds the
+// other's partials, and accumulates its half of dq.
+template <int DP>
+__global__ void __launch_bounds__(MNT * tf32_bwd_groups(DP)) attn_bwd_dq_tf32x3_kernel(Args<float> a, int flags) {
+  constexpr int G = tf32_bwd_groups(DP), NT = MNT * G, DG = DP / G;  // DG: the group's columns
+  constexpr int LD = DP + 4, KB = tf32_bwd_tile(DP), LDM = tf32_mask_ld(KB);
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  float* qs = reinterpret_cast<float*>(smem_mma);  // [MQ][LD]
+  float* dos = qs + MQ * LD;                       // [MQ][LD]
+  float* ks = dos + MQ * LD;                       // [NS][KB][LD]
+  float* vs = ks + NS * KB * LD;                   // [NS][KB][LD]
+  float* xs = vs + NS * KB * LD;                   // G = 2: [8 warps][KB][32] partial s and dp
+  unsigned char* ms = reinterpret_cast<unsigned char*>(xs + (G > 1 ? 8 * KB * 32 : 0));  // [NS][MQ][LDM]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, i0 = blockIdx.y * MQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int wr = warp % 4, c0 = warp / 4 * DG;  // the warp's 16 rows, its group's first column
+  const int nkt = (T_ + KB - 1) / KB, stages = 2 * nkt;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: K, V and mask tile t % nkt (pass 1 for t < nkt, then pass 2).
+  auto issue = [&](int t) {
+    if (t < stages) {
+      const int buf = t % NS, j0 = (t % nkt) * KB;
+      load_rows<DP, KB, NT>(ks + buf * KB * LD, a.k, b, h, j0, T_, D, vec);
+      load_rows<DP, KB, NT>(vs + buf * KB * LD, a.v, b, h, j0, T_, D, vec);
+      if (a.mask) load_mask<LDM, KB, MQ, NT>(ms + buf * MQ * LDM, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+  // s and dp of the warp's rows against key tile `buf` (keys from j0): the
+  // score scaled, keys past T at -inf, dp masked.
+  auto scores = [&](float (&s)[KB / 8][4], float (&dp)[KB / 8][4], int buf, int j0) {
+    abt_tf32x3<DG, KB, LD>(s, qs + wr * 16 * LD + c0, ks + buf * KB * LD + c0);
+    abt_tf32x3<DG, KB, LD>(dp, dos + wr * 16 * LD + c0, vs + buf * KB * LD + c0);
+    if constexpr (G > 1) add_partner_half<KB>(s, dp, xs);
+    finish_scores<KB>(s, j0, T_, a.scale);
+    if (a.mask) apply_mask<KB, LDM>(dp, ms + buf * MQ * LDM + (wr * 16 + g) * LDM + 2 * qd, a.inv_keep);
+  };
+
+  load_rows<DP, MQ, NT>(qs, a.q, b, h, i0, T_, D, vec);
+  load_rows<DP, MQ, NT>(dos, a.dout, b, h, i0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  float mx[2], l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
+
+  // Pass 1: online max, sum and dp-weighted sum of exp(s - max).
+  for (int t = 0; t < nkt; ++t) {
+    arrive(t);
+    float s[KB / 8][4], dp[KB / 8][4];
+    scores(s, dp, t % NS, t * KB);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = s[0][2 * r];
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n) m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      m = fmaxf(mx[r], quad_max(m));
+      const float ml = m * LOG2E;
+      float sum = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = exp_shifted(s[n][2 * r + c], ml);
+          sum += e;
+          dsum = fmaf(dp[n][2 * r + c], e, dsum);
+        }
+      const float corr = exp_shifted(mx[r], ml);  // the first tile: exp(-inf) = 0
+      l[r] = l[r] * corr + sum;
+      dl[r] = dl[r] * corr + dsum;
+      mx[r] = m;
+    }
+    __syncthreads();
+  }
+  float mxl[2], inv_l[2], delta[2];
+  const size_t N = (size_t)a.B * a.H * T_;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    inv_l[r] = 1.f / lsum;
+    mxl[r] = mx[r] * LOG2E;
+    delta[r] = quad_sum(dl[r]) / lsum;
+    const int i = i0 + wr * 16 + g + 8 * r;
+    if (qd == 0 && c0 == 0 && i < T_) {
+      const size_t row = (size_t)bh * T_ + i;
+      a.stats[row] = mxl[r];
+      a.stats[N + row] = inv_l[r];
+      a.stats[2 * N + row] = delta[r];
+    }
+  }
+
+  // Pass 2: ds = p (dp - delta) scale in the C fragments, times K.
+  float dq[DG / 8][4];
+#pragma unroll
+  for (int n = 0; n < DG / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  for (int t = nkt; t < stages; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    float s[KB / 8][4], dp[KB / 8][4];
+    scores(s, dp, buf, (t - nkt) * KB);
+#pragma unroll
+    for (int n = 0; n < KB / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fmul_rn(exp_shifted(s[n][e], mxl[r]), inv_l[r]);
+        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[r])), a.scale);
+      }
+    pm_tf32x3<DG, KB / 8, LD>(dq, s, ks + buf * KB * LD + c0);
+    __syncthreads();
+  }
+  View<float> dqo = a.dq;  // the group's columns [c0, c0 + DG)
+  dqo.p += c0;
+  store_acc<DG>(dqo, dq, b, h, i0 + wr * 16, T_, D - c0, flags & VEC_OUT);
+}
+
+// Launch 2 of the float32 backward, per 64 keys (16 a warp), over QB-query
+// tiles: `attn_bwd_dkdv_mma_kernel`'s products in 3xTF32, the warp's K and
+// V rows read from shared memory per product. With G = 2 warp groups
+// (DP = 256) warps w and w + 4 share 16 keys: each reduces half of DP for
+// s^T and dp^T, adds the other's partials, and accumulates its half of dk
+// and dv (where the bf16 wide kernel splits D over the grid and computes
+// s^T and dp^T in both halves).
+template <int DP>
+__global__ void __launch_bounds__(MNT * tf32_bwd_groups(DP)) attn_bwd_dkdv_tf32x3_kernel(Args<float> a, int flags) {
+  constexpr int G = tf32_bwd_groups(DP), NT = MNT * G, DG = DP / G;  // DG: the group's columns
+  constexpr int LD = DP + 4, QB = tf32_bwd_tile(DP);
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  float* ks = reinterpret_cast<float*>(smem_mma);  // [MK][LD]
+  float* vs = ks + MK * LD;                        // [MK][LD]
+  float* qs = vs + MK * LD;                        // [NS][QB][LD]
+  float* dos = qs + NS * QB * LD;                  // [NS][QB][LD]
+  float* sts = dos + NS * QB * LD;                 // [NS][3][QB]
+  float* xs = sts + NS * 3 * QB;                   // G = 2: [8 warps][QB][32] partial s^T and dp^T
+  unsigned char* ms = reinterpret_cast<unsigned char*>(xs + (G > 1 ? 8 * QB * 32 : 0));  // [NS][QB][MASK_LDB]
+  const int T_ = a.Tn, D = a.D;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H, j0 = blockIdx.y * MK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int wr = warp % 4, c0 = warp / 4 * DG;  // the warp's 16 keys, its group's first column
+  const int nqt = (T_ + QB - 1) / QB;
+  const size_t N = (size_t)a.B * a.H * T_;
+  const bool vec = flags & VEC_QKV;
+
+  // Stage t: Q, dO, statistics and mask of query tile t.
+  auto issue = [&](int t) {
+    if (t < nqt) {
+      const int buf = t % NS, i0 = t * QB;
+      load_rows<DP, QB, NT>(qs + buf * QB * LD, a.q, b, h, i0, T_, D, vec);
+      load_rows<DP, QB, NT>(dos + buf * QB * LD, a.dout, b, h, i0, T_, D, vec);
+      load_stats<QB>(sts + buf * 3 * QB, a.stats, N, (size_t)bh * T_ + i0, T_ - i0);
+      if (a.mask)
+        load_mask<MASK_LDB, MK, QB, NT>(ms + buf * QB * MASK_LDB, a.mask, bh, i0, j0, T_, flags & VEC_MASK);
+    }
+    cp_async_commit();
+  };
+  auto arrive = [&](int t) {
+    issue(t + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+  };
+
+  load_rows<DP, MK, NT>(ks, a.k, b, h, j0, T_, D, vec);
+  load_rows<DP, MK, NT>(vs, a.v, b, h, j0, T_, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) issue(t);
+  const float* kr = ks + wr * 16 * LD;
+  const float* vr = vs + wr * 16 * LD;
+  const int mcol = wr * 16 + g;  // the thread's key column in the mask tile (and + 8)
+  float dk[DG / 8][4], dv[DG / 8][4];
+#pragma unroll
+  for (int n = 0; n < DG / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = 0; t < nqt; ++t) {
+    arrive(t);
+    const int buf = t % NS;
+    const float* qt = qs + buf * QB * LD;
+    const float* dot = dos + buf * QB * LD;
+    const float* st = sts + buf * 3 * QB;
+    const unsigned char* mt = ms + buf * QB * MASK_LDB;
+    float s[QB / 8][4], dp[QB / 8][4];  // rows: keys g, g + 8; columns: queries
+    abt_tf32x3<DG, QB, LD>(s, kr + c0, qt + c0);
+    abt_tf32x3<DG, QB, LD>(dp, vr + c0, dot + c0);
+    if constexpr (G > 1) add_partner_half<QB>(s, dp, xs);
+#pragma unroll
+    for (int n = 0; n < QB / 8; ++n) {
+      const int c = n * 8 + 2 * qd;  // the query of e = 0, 2; c + 1 for e = 1, 3
+      const float2 ml = *reinterpret_cast<const float2*>(st + c);
+      const float2 il = *reinterpret_cast<const float2*>(st + QB + c);
+      const float2 de = *reinterpret_cast<const float2*>(st + 2 * QB + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e & 1;
+        const float p = __fmul_rn(exp_shifted(__fmul_rn(s[n][e], a.scale), hi ? ml.y : ml.x), hi ? il.y : il.x);
+        float pd = p, d = dp[n][e];
+        if (a.mask) {
+          const float km = mt[(c + hi) * MASK_LDB + mcol + 8 * (e >> 1)] ? a.inv_keep : 0.f;  // as `apply_mask`
+          pd = __fmul_rn(p, km);
+          d = __fmul_rn(d, km);
+        }
+        s[n][e] = pd;
+        dp[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, hi ? de.y : de.x)), a.scale);
+      }
+    }
+    pm_tf32x3<DG, QB / 8, LD>(dv, s, dot + c0);
+    pm_tf32x3<DG, QB / 8, LD>(dk, dp, qt + c0);
+    __syncthreads();
+  }
+  View<float> dko = a.dk, dvo = a.dv;  // the group's columns [c0, c0 + DG)
+  dko.p += c0;
+  dvo.p += c0;
+  const bool vout = flags & VEC_OUT;
+  store_acc<DG>(dko, dk, b, h, j0 + wr * 16, T_, D - c0, vout);
+  store_acc<DG>(dvo, dv, b, h, j0 + wr * 16, T_, D - c0, vout);
+}
+
 bool is_aligned(const void* p, unsigned bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 template <typename U>
 bool rows_aligned(const View<U>& m, unsigned bytes) {
-  const long long e = bytes / sizeof(bf16);
+  const long long e = bytes / sizeof(U);
   return is_aligned(m.p, bytes) && m.sb % e == 0 && m.sh % e == 0 && m.st % e == 0;
 }
 
 // The VEC_* flags of a call: q, k, v (and dO) rows by 16 bytes, mask rows by
-// 8 (T % 8 == 0: every row 8-byte aligned), outputs by bf16 column pairs.
-int mma_flags(const Args<bf16>& a, bool backward) {
+// 8 (T % 8 == 0: every row 8-byte aligned), outputs by column pairs.
+template <typename T>
+int mma_flags(const Args<T>& a, bool backward) {
+  constexpr unsigned pair = 2 * sizeof(T);
   int flags = 0;
-  if (a.D % 8 == 0 && rows_aligned(a.q, 16) && rows_aligned(a.k, 16) && rows_aligned(a.v, 16) &&
+  if (a.D % (16 / sizeof(T)) == 0 && rows_aligned(a.q, 16) && rows_aligned(a.k, 16) && rows_aligned(a.v, 16) &&
       (!backward || rows_aligned(a.dout, 16)))
     flags |= VEC_QKV;
   if (a.mask && is_aligned(a.mask, 8)) flags |= VEC_MASK;
-  if (a.D % 2 == 0 && (backward ? rows_aligned(a.dq, 4) && rows_aligned(a.dk, 4) && rows_aligned(a.dv, 4)
-                                : rows_aligned(a.o, 4)))
+  if (a.D % 2 == 0 && (backward ? rows_aligned(a.dq, pair) && rows_aligned(a.dk, pair) && rows_aligned(a.dv, pair)
+                                : rows_aligned(a.o, pair)))
     flags |= VEC_OUT;
   return flags;
 }
@@ -1443,11 +1609,11 @@ int mma_flags(const Args<bf16>& a, bool backward) {
 constexpr int MAX_DEVICES = 64;
 
 // Launches a tensor-core kernel with `smem` bytes of dynamic shared memory.
-// Its limit, and the carveout at the most shared memory (two blocks of any
-// of these kernels on an SM at DP = 128), are set once per device and the
+// Its limit, and the carveout at the most shared memory (two blocks of the
+// bf16 kernels on an SM at DP = 128), are set once per device and the
 // largest `smem` seen: no driver call on the launches after.
-template <auto Kernel>
-cudaError_t launch_mma(dim3 grid, size_t smem, const Args<bf16>& a, int flags, cudaStream_t s) {
+template <auto Kernel, typename T>
+cudaError_t launch_mma(dim3 grid, size_t smem, const Args<T>& a, int flags, cudaStream_t s, int threads = MNT) {
   static std::atomic<size_t> smem_set[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1460,7 +1626,7 @@ cudaError_t launch_mma(dim3 grid, size_t smem, const Args<bf16>& a, int flags, c
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) smem_set[dev].store(smem);
   }
-  Kernel<<<grid, MNT, smem, s>>>(a, flags);
+  Kernel<<<grid, threads, smem, s>>>(a, flags);
   return cudaGetLastError();
 }
 
@@ -1504,62 +1670,50 @@ cudaError_t bwd_mma<DW>(const Args<bf16>& a, cudaStream_t s) {
   return launch_mma<attn_bwd_dkdv_mma_wide_kernel>(dim3(a.B * a.H, nt, DW / DH), smem2, a, flags, s);
 }
 
-template <typename T, int DC>
-cudaError_t fwd(const Args<T>& a, cudaStream_t s) {
-  const int ld = a.D | 1;
-  const size_t smem = sizeof(float) * (size_t)(QT * ld + QT * a.Tn + KT * ld);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  attn_fwd_kernel<T, DC><<<dim3(a.B * a.H, (a.Tn + QT - 1) / QT), NT, smem, s>>>(a);
-  return cudaGetLastError();
+template <int DP>
+cudaError_t fwd_tf32(const Args<float>& a, cudaStream_t s) {
+  constexpr int KB = tf32_fwd_keys(DP), NBUF = tf32_fwd_bufs(DP);
+  const size_t smem =
+      sizeof(float) * (size_t)(MQ + 2 * NBUF * KB) * (DP + 4) + (a.mask ? NBUF * MQ * tf32_mask_ld(KB) : 0);
+  return launch_mma<attn_fwd_tf32x3_kernel<DP>>(dim3(a.B * a.H, (a.Tn + MQ - 1) / MQ), smem, a,
+                                                mma_flags(a, false), s);
 }
 
-template <typename T, int DC>
-cudaError_t bwd(const Args<T>& a, cudaStream_t s) {
-  const int ld = a.D | 1;
-  const size_t smem1 = sizeof(float) * (size_t)(2 * QT * ld + 2 * QT * a.Tn + KT * ld);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+template <int DP>
+cudaError_t bwd_tf32(const Args<float>& a, cudaStream_t s) {
+  constexpr int TB = tf32_bwd_tile(DP), G = tf32_bwd_groups(DP);
+  constexpr size_t row = sizeof(float) * (DP + 4), xs = G > 1 ? sizeof(float) * 8 * TB * 32 : 0;
+  const int flags = mma_flags(a, true), nt = (a.Tn + MQ - 1) / MQ;  // MQ = MK: query tiles, then key tiles
+  const dim3 grid(a.B * a.H, nt);
+  const size_t smem1 = row * (2 * MQ + 2 * NS * TB) + xs + (a.mask ? NS * MQ * tf32_mask_ld(TB) : 0);
+  const cudaError_t err = launch_mma<attn_bwd_dq_tf32x3_kernel<DP>>(grid, smem1, a, flags, s, MNT * G);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, DC><<<dim3(a.B * a.H, (a.Tn + QT - 1) / QT), NT, smem1, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem2 = sizeof(float) * (size_t)(2 * KT2 * ld + 2 * QT2 * ld + 2 * QT2 * KT2);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, DC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T, DC><<<dim3(a.B * a.H, (a.Tn + KT2 - 1) / KT2), NT2, smem2, s>>>(a);
-  return cudaGetLastError();
+  const size_t smem2 =
+      row * (2 * MK + 2 * NS * TB) + sizeof(float) * NS * 3 * TB + xs + (a.mask ? NS * TB * MASK_LDB : 0);
+  return launch_mma<attn_bwd_dkdv_tf32x3_kernel<DP>>(grid, smem2, a, flags, s, MNT * G);
 }
 
-// bf16 forwards and backwards run on the tensor cores, DP columns a tile
-// (DP = 256: the wide kernels). float32 runs on the CUDA cores, with DC
-// chunks of 32 columns per lane covering D (8 <= D <= 256).
+// Every forward and backward runs on the tensor cores, DP columns a tile:
+// bf16 in bf16 products (DP = 256: the wide kernels), float32 in 3xTF32.
 template <int N>
 using Int = std::integral_constant<int, N>;
 
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, bool backward, cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const auto mma = [&](auto dp) {
-      return backward ? bwd_mma<decltype(dp)::value>(a, s) : fwd_mma<decltype(dp)::value>(a, s);
-    };
-    if (a.D <= 16) return mma(Int<16>());
-    if (a.D <= 32) return mma(Int<32>());
-    if (a.D <= 64) return mma(Int<64>());
-    if (a.D <= 128) return mma(Int<128>());
-    if (a.D <= 256) return mma(Int<256>());
-    return cudaErrorInvalidValue;  // past the gate (the wrapper raises first)
-  } else {
-    const auto cores = [&](auto dc) {
-      return backward ? bwd<T, decltype(dc)::value>(a, s) : fwd<T, decltype(dc)::value>(a, s);
-    };
-    if (a.D <= 32) return cores(Int<1>());
-    if (a.D <= 64) return cores(Int<2>());
-    if (a.D <= 128) return cores(Int<4>());
-    return cores(Int<8>());
-  }
+  const auto mma = [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    if constexpr (std::is_same<T, bf16>::value) {
+      return backward ? bwd_mma<DP>(a, s) : fwd_mma<DP>(a, s);
+    } else {
+      return backward ? bwd_tf32<DP>(a, s) : fwd_tf32<DP>(a, s);
+    }
+  };
+  if (a.D <= 16) return mma(Int<16>());
+  if (a.D <= 32) return mma(Int<32>());
+  if (a.D <= 64) return mma(Int<64>());
+  if (a.D <= 128) return mma(Int<128>());
+  if (a.D <= 256) return mma(Int<256>());
+  return cudaErrorInvalidValue;  // past the gate (the wrapper raises first)
 }
 
 template <typename U>

@@ -14,12 +14,21 @@ contiguous last dimension, so the (B, T, H, D) view of a `Linear` output
 reshaped by heads is read in place; their outputs are (B, H, T, D) views of
 (B, T, H, D) memory, so merging the heads back is free.
 
-On the card bf16 runs on the tensor cores: with D <= 128 (every fusion
-stage) `attn_fwd_mma_kernel` and the backward's `attn_bwd_dq_mma_kernel` and
-`attn_bwd_dkdv_mma_kernel`, with 128 < D <= 256 (ResNet-50's stage 3) their
-`*_mma_wide_kernel` counterparts at a padded width of 256; float32 runs on
-the CUDA cores (`forward_kernel` and `backward_kernel` name the kernels of a
-call).
+On the card every call runs on the tensor cores (`forward_kernel` and
+`backward_kernel` name the path of a call). bf16 in bf16 products ("mma"):
+with D <= 128 (every fusion stage) `attn_fwd_mma_kernel` and the backward's
+`attn_bwd_dq_mma_kernel` and `attn_bwd_dkdv_mma_kernel`, with 128 < D <= 256
+(ResNet-50's stage 3) their `*_mma_wide_kernel` counterparts at a padded
+width of 256. float32 in three TF32 products a product ("mma_tf32x3"):
+`attn_fwd_tf32x3_kernel`, `attn_bwd_dq_tf32x3_kernel` and
+`attn_bwd_dkdv_tf32x3_kernel` at every D. One TF32 product keeps 11
+significant bits of each operand, about 2^-11 relative a term, which puts
+the scores and the output near the float32 limit of 1e-4 against the plain
+version; each operand is split into a TF32 part and a TF32 remainder
+(x = big + small to about 2^-22 |x|), and big·big + big·small + small·big
+in float32 keeps about 21 bits a term. The float32 forward takes one pass
+with an online softmax: in float32 the probabilities are not rounded before
+``p · v``, so nothing needs them normalised first.
 
 `fused_attention` is a `torch.autograd.Function` whose forward and backward
 dispatch on the tensors' device: a CPU tensor takes the plain version, a
@@ -38,7 +47,6 @@ import torch
 from diffusiondrive_torch.ops._build import load_library
 
 _MAX_T = 512
-_MMA_MAX_D = 256  # `csrc/attention_fused.cu:dispatch`, forward and backward: every bf16 D the gate takes
 
 
 def supports_fused_attention(T: int, d_head: int) -> bool:
@@ -47,15 +55,16 @@ def supports_fused_attention(T: int, d_head: int) -> bool:
 
 
 def forward_kernel(dtype: torch.dtype, d_head: int) -> str:
-    """Which forward kernel a CUDA call launches: "mma" (bf16, mma.sync on
-    the tensor cores; D > 128 the wide kernel) or "cuda_core" (f32 FMAs)."""
-    return "mma" if dtype == torch.bfloat16 and d_head <= _MMA_MAX_D else "cuda_core"
+    """Which forward kernel a CUDA call launches (`csrc/attention_fused.cu:
+    dispatch`, every D the gate takes): "mma" (bf16 products on the tensor
+    cores; D > 128 the wide kernel) or "mma_tf32x3" (float32, three TF32
+    products a product on the tensor cores)."""
+    return "mma" if dtype == torch.bfloat16 else "mma_tf32x3"
 
 
 def backward_kernel(dtype: torch.dtype, d_head: int) -> str:
-    """Which backward kernels a CUDA call launches: "mma" (bf16, both
-    launches on the tensor cores) or "cuda_core" (f32 FMAs): the forward's
-    rule."""
+    """Which backward kernels a CUDA call launches: the forward's rule, both
+    launches on the tensor cores."""
     return forward_kernel(dtype, d_head)
 
 

@@ -134,7 +134,7 @@ def _by_kernel_name(kernels, n: int, out) -> None:
             out[name][1] += len(ks) / n
 
     add(("lap", "loss"), [k for k in kernels if "lap_kernel" in k.name])
-    add(("attention_fwd",), [k for k in kernels if "attn_fwd_" in k.name])  # mma or CUDA-core kernel
+    add(("attention_fwd",), [k for k in kernels if "attn_fwd_" in k.name])  # the bf16 or float32 (tf32x3) kernel
     add(("attention_bwd",), [k for k in kernels if "attn_bwd_" in k.name])
     conv = sorted((k for k in kernels if "conv3x3_kernel" in k.name or "conv3x3_mma_kernel" in k.name),
                   key=lambda k: k.time_range.start)  # the bf16 (mma) or float32 (CUDA-core) kernel

@@ -447,6 +447,25 @@ def _attention_inputs(B, H, T, D, dtype, masked, device, seed):
     return q, k, v, do, mask, pdrop
 
 
+def _attention_kernel_names(dtype, D) -> tuple:
+    """(forward kernel, backward kernels) that `forward_kernel` /
+    `backward_kernel`'s path names at head width D: bf16 "mma" the DP <= 128
+    tensor-core kernels or, past 128, the wide ones; float32 "mma_tf32x3"
+    the 3xTF32 kernels at every D."""
+    suffix = {"mma_tf32x3": "_tf32x3_kernel", "mma": "_mma_wide_kernel" if D > 128 else "_mma_kernel"}[
+        forward_kernel(dtype, D)]
+    return f"attn_fwd{suffix}", (f"attn_bwd_dq{suffix}", f"attn_bwd_dkdv{suffix}")
+
+
+def _assert_attention_kernels(dtype, D, fwd: set, bwd: set) -> None:
+    """The profiler's kernel names of one forward and one backward call are
+    the ones the path names: one forward kernel, the backward's two."""
+    assert forward_kernel(dtype, D) == backward_kernel(dtype, D)
+    want_fwd, want_bwd = _attention_kernel_names(dtype, D)
+    assert len(fwd) == 1 and any(want_fwd in n for n in fwd), (want_fwd, fwd)
+    assert len(bwd) == 2 and all(any(w in n for n in bwd) for w in want_bwd), (want_bwd, bwd)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,T,D", [(2, 3, 24, 8), (1, 2, 504, 256), (3, 4, 320, 48), (2, 1, 8, 33),
@@ -462,10 +481,13 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
     kernels (T = 504, D = 128: the largest DP = 128 tiles and the longest
     key loop; D = 129..256 the wide kernels at DP = 256, with T tails of 8
     and 24 keys past a 32-key tile and a whole last tile at T = 512),
-    float32 the CUDA-core ones. Tolerances as in `chip_smoke.py`: float32
-    sums in another order; bf16 probabilities and score gradients rounded to
-    bf16 on either side of a last-bit difference, and every bf16 result also
-    within 2 bf16 ulps of max |plain|."""
+    float32 the 3xTF32 tensor-core ones (D = 8, 33, 129: rows copied by
+    4-byte cp.async; T tails past 16-, 32- and 64-row tiles); the profiler
+    names the kernels that ran. Tolerances as in `chip_smoke.py`: float32
+    sums in another order (three TF32 products keep float32's accuracy);
+    bf16 probabilities and score gradients rounded to bf16 on either side
+    of a last-bit difference, and every bf16 result also within 2 bf16 ulps
+    of max |plain|."""
     q, k, v, do, mask, pdrop = _attention_inputs(B, H, T, D, dtype, masked, cuda_device, T * D + masked)
     fwd0, bwd0 = fused_attention.launches, fused_attention_bwd.launches
     out = fused_attention(q, k, v, mask, pdrop)
@@ -487,14 +509,16 @@ def test_cuda_attention_matches_plain_versions(cuda_device, dtype, tol, B, H, T,
     assert fused_attention_bwd.launches == bwd0 + 2
     for name, leaf, want in zip("dq dk dv".split(), leaves, grads):
         torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0, msg=name)
+    _assert_attention_kernels(dtype, D, _kernel_names(lambda: fused_attention(q, k, v, mask, pdrop)),
+                              _kernel_names(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [64, 256])
 def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dtype, tol, D):
-    """The backward kernels (bf16 on the tensor cores, float32 on the CUDA
-    cores) at one fixed fusion-block input, (2, 4, 320, D) with a keep
+    """The backward kernels (bf16 products and float32 3xTF32, both on the
+    tensor cores) at one fixed fusion-block input, (2, 4, 320, D) with a keep
     mask, D = 64 and ResNet-50's stage-3 D = 256: dq, dk and dv within the
     plain versions' limits, bf16 also within 2 bf16 ulps, and the same bits
     in a second call (no atomics)."""
@@ -515,17 +539,11 @@ def test_cuda_attention_backward_matches_plain_at_a_fusion_shape(cuda_device, dt
 def test_cuda_attention_launches_the_kernels_its_path_names(cuda_device, dtype, D):
     """`forward_kernel` / `backward_kernel` against the kernels the profiler
     sees: bf16 D = 64 the DP <= 128 tensor-core kernels, bf16 D = 200 the
-    wide ones (never the CUDA-core kernels), float32 the CUDA-core ones."""
+    wide ones, float32 the 3xTF32 kernels at either D."""
+    assert forward_kernel(dtype, D) == ("mma" if dtype == torch.bfloat16 else "mma_tf32x3")
     q, k, v, do, mask, pdrop = _attention_inputs(2, 2, 64, D, dtype, True, cuda_device, D)
-    fwd = _kernel_names(lambda: fused_attention(q, k, v, mask, pdrop))
-    bwd = _kernel_names(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop))
-    assert forward_kernel(dtype, D) == backward_kernel(dtype, D)
-    suffix = {"cuda_core": "_kernel", "mma": "_mma_wide_kernel" if D > 128 else "_mma_kernel"}[
-        forward_kernel(dtype, D)]
-    assert any(f"attn_fwd{suffix}" in n for n in fwd) and len(fwd) == 1, fwd
-    for part in ("dq", "dkdv"):
-        assert any(f"attn_bwd_{part}{suffix}" in n for n in bwd), bwd
-    assert len(bwd) == 2, bwd
+    _assert_attention_kernels(dtype, D, _kernel_names(lambda: fused_attention(q, k, v, mask, pdrop)),
+                              _kernel_names(lambda: fused_attention_bwd(q, k, v, mask, do, pdrop)))
 
 
 @pytest.mark.cuda

@@ -138,22 +138,24 @@ def test_gate_equals_jax():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_names_follow_the_dispatch_rule(dtype):
     """`forward_kernel` and `backward_kernel` name what `dispatch` in
-    `csrc/attention_fused.cu` launches over a grid of head widths: the
-    tensor cores ("mma") for bf16 with D up to the source's bound in both
-    directions (every D the gate takes: 256), the CUDA cores for float32."""
+    `csrc/attention_fused.cu` launches over a grid of head widths: one
+    head-width ladder up to the source's bound (every D the gate takes:
+    256) whose step takes either direction in either dtype, bf16 products
+    ("mma") for bf16 and 3xTF32 products ("mma_tf32x3") for float32, both
+    on the tensor cores; no other float32 kernel is left in the source."""
     import re
     from pathlib import Path
 
     src = (Path(attention_fused.__file__).resolve().parent.parent / "csrc" / "attention_fused.cu").read_text()
-    # bf16: one head-width ladder `mma(Int<DP>())` whose lambda takes either direction
     assert re.search(r"backward \? bwd_mma<[^>]+>\(a, s\) : fwd_mma<[^>]+>\(a, s\)", src)
-    mma_bound = max(int(n) for n in re.findall(r"if \(a\.D <= (\d+)\) return mma\(", src))
-    bounds = {"forward": mma_bound, "backward": mma_bound}
-    assert bounds == {"forward": 256, "backward": 256}
+    assert re.search(r"backward \? bwd_tf32<[^>]+>\(a, s\) : fwd_tf32<[^>]+>\(a, s\)", src)
+    assert max(int(n) for n in re.findall(r"if \(a\.D <= (\d+)\) return mma\(", src)) == 256
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\(.+?\) (\w+)\(Args<", src))
+    assert {k for k in kernels if "mma" not in k} == {
+        "attn_fwd_tf32x3_kernel", "attn_bwd_dq_tf32x3_kernel", "attn_bwd_dkdv_tf32x3_kernel"}
     for D in (8, 16, 32, 33, 48, 64, 127, 128, 129, 192, 256):
-        for direction, name in (("forward", forward_kernel), ("backward", backward_kernel)):
-            want = "mma" if dtype == torch.bfloat16 and D <= bounds[direction] else "cuda_core"
-            assert name(dtype, D) == want, (direction, dtype, D)
+        for name in (forward_kernel, backward_kernel):
+            assert name(dtype, D) == ("mma" if dtype == torch.bfloat16 else "mma_tf32x3"), (name, dtype, D)
 
 
 def _fusion_configs(attn_pdrop=0.0, **kw):

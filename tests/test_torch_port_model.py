@@ -193,6 +193,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124attn_fwd_mma_wide_k
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124attn_fwd_mma_wide_kernelENS_4ArgsI13__nv_bfloat16EEi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 208 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122attn_fwd_tf32x3_kernelILi256EEEvNS_4ArgsIfEEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122attn_fwd_tf32x3_kernelILi256EEEvNS_4ArgsIfEEi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 216 registers, used 1 barriers, 384 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115attn_fwd_kernelIfLi4EEEvNS_4ArgsIT_EE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115attn_fwd_kernelIfLi4EEEvNS_4ArgsIT_EE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -210,8 +214,9 @@ ptxas info    : Used 79 registers, used 1 barriers
 
 def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     """The build phase's spill gate reads nvcc's `-Xptxas -v` log: per
-    tensor-core kernel and instantiation (attention: head width DP; conv3x3:
-    residual, ReLU; the wide attention kernels are no templates: key ""),
+    tensor-core kernel and instantiation (attention: head width DP, the
+    float32 3xTF32 kernels up to 256; conv3x3: residual, ReLU; the wide
+    attention kernels are no templates: key ""),
     [registers, spill store bytes, spill load bytes]; other kernels, the
     CUDA-core conv3x3 among them, are not mixed in, and a bf16 attention
     row's stats follow the dispatch's head-width ladder. An
@@ -228,6 +233,10 @@ def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     assert chip_smoke.attention_regs_spills(logs, False, 200) == {"attn_fwd_mma_wide_kernel": [208, 0, 0]}
     assert chip_smoke.attention_regs_spills(logs, True, 9) == {"attn_bwd_dq_mma_kernel": [147, 0, 0],
                                                                "attn_bwd_dkdv_mma_kernel": None}
+    assert chip_smoke.attention_regs_spills(logs, False, 200, torch.float32) == {
+        "attn_fwd_tf32x3_kernel": [216, 0, 0]}
+    assert chip_smoke.attention_regs_spills(logs, True, 16, torch.float32) == {
+        "attn_bwd_dq_tf32x3_kernel": None, "attn_bwd_dkdv_tf32x3_kernel": None}
     assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.CONV_MMA_KERNEL) == {"1,0": [240, 0, 0]}
     assert set(chip_smoke.MMA_KERNELS) == {"attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel",
                                            "attn_bwd_dkdv_mma_kernel"}
