@@ -15,20 +15,22 @@ line per phase, then one JSON line per kernel summary, then the result:
                the backward's two launches) and for their three DP = 256
                counterparts (`WIDE_MMA_KERNELS`), the five (DP = 16 ... 256)
                of each float32 3xTF32 attention kernel (`TF32_KERNELS`),
-               each of the four (residual,
-               ReLU) of the tensor-core conv3x3 kernel (`CONV_MMA_KERNEL`)
-               and each of the four (C = 1..4) of the tensor-core stem
-               kernel (`STEM_MMA_KERNEL`), and for the LAP and splat
-               kernels (`SINGLE_KERNELS`).
+               each of the four (residual, ReLU) of the bf16 and the
+               float32 conv3x3 kernels (`CONV_MMA_KERNEL`,
+               `CONV_TF32_KERNEL`) and each of the four (C = 1..4) of the
+               bf16 and the float32 stem kernels (`STEM_MMA_KERNEL`,
+               `STEM_TF32_KERNEL`), and for the LAP and splat kernels
+               (`SINGLE_KERNELS`).
 3. ``kernel``  each kernel at its main-path shapes (B=16, and the camera stem
                also at B=1; the conv kernels in bf16 and f32) against its
                plain PyTorch version (max abs error and the tolerance; the
                lidar splat must be exact and the same bits twice, on the
                agent path's clouds and on a uniform cloud, its rows naming
                `path` "segments" and the launch plan; stem and conv3x3 rows name their
-               kernel in `path`, "mma" for bf16 on the tensor cores or
-               "cuda_core" for float32, bf16 rows also hold 2 bf16 ulps of
-               max |plain|, two calls give the same bits, and
+               kernel in `path`, both on the tensor cores: "mma" for bf16
+               products, "mma_tf32x3" for float32 in three TF32 products a
+               product; bf16 rows also hold 2 bf16 ulps of max |plain|,
+               two calls give the same bits, and
                `library_conv_ms` is the bare `F.conv2d`), timed beside
                the plain version, a library yardstick (`library_ms`, never
                used by the port) and the card's bound for the same work
@@ -50,8 +52,9 @@ line per phase, then one JSON line per kernel summary, then the result:
                pinned, `SDPA_BACKEND`; one untimed pass over the first row
                first) and ``kernel conv3x3_train`` (its forward and input
                gradient at the B=64 layer-1 shapes in bf16, within 2 bf16
-               ulps too, and one autograd backward against the plain
-               version's; library: cuDNN `conv2d` and `conv2d_input`).
+               ulps too, and in float32; the same bits twice; one autograd
+               backward against the plain version's; library: cuDNN
+               `conv2d` and `conv2d_input`, float32 in float32, TF32 off).
 4. ``main_path`` the full-width planner forward (default TransfuserConfig,
                seeded random weights): (a) float32 at B=1 on the card against
                the same model on the CPU; (b) bf16 at B=1 and B=16, finite
@@ -415,10 +418,12 @@ WIDE_MMA_KERNELS = ("attn_fwd_mma_wide_kernel", "attn_bwd_dq_mma_wide_kernel", "
 # the float32 attention kernels (3xTF32 on the tensor cores), each built for DP = 16, 32, 64, 128, 256
 TF32_KERNELS = ("attn_fwd_tf32x3_kernel", "attn_bwd_dq_tf32x3_kernel", "attn_bwd_dkdv_tf32x3_kernel")
 TF32_DP = (16, 32, 64, 128, 256)
-# the tensor-core conv3x3 kernel of `csrc/conv3x3_fused.cu`, built for (RES, RELU) in {0, 1}^2
+# the conv3x3 kernels of `csrc/conv3x3_fused.cu` (bf16; float32 in 3xTF32), each built for (RES, RELU) in {0, 1}^2
 CONV_MMA_KERNEL = "conv3x3_mma_kernel"
-# the tensor-core stem kernel of `csrc/stem_fused.cu`, built for C = 1, 2, 3, 4
+CONV_TF32_KERNEL = "conv3x3_tf32x3_kernel"
+# the stem kernels of `csrc/stem_fused.cu` (bf16; float32 in 3xTF32), each built for C = 1, 2, 3, 4
 STEM_MMA_KERNEL = "stem_mma_kernel"
+STEM_TF32_KERNEL = "stem_tf32x3_kernel"
 # the kernels of `csrc/lap.cu` and `csrc/lidar_splat.cu` (no templates), by source
 SINGLE_KERNELS = {"lap": "lap_kernel", "lidar_splat": "splat_kernel"}
 
@@ -463,12 +468,12 @@ def phase_build() -> dict:
     mma = {k: ptxas_stats(logs["attention_fused"], k) for k in MMA_KERNELS}
     wide = {k: ptxas_stats(logs["attention_fused"], k).get("") for k in WIDE_MMA_KERNELS}
     tf32 = {k: ptxas_stats(logs["attention_fused"], k) for k in TF32_KERNELS}
-    conv = {CONV_MMA_KERNEL: ptxas_stats(logs["conv3x3_fused"], CONV_MMA_KERNEL)}
-    stem = {STEM_MMA_KERNEL: ptxas_stats(logs["stem_fused"], STEM_MMA_KERNEL)}
+    conv = {k: ptxas_stats(logs["conv3x3_fused"], k) for k in (CONV_MMA_KERNEL, CONV_TF32_KERNEL)}
+    stem = {k: ptxas_stats(logs["stem_fused"], k) for k in (STEM_MMA_KERNEL, STEM_TF32_KERNEL)}
     single = {k: ptxas_stats(logs[src], k).get("") for src, k in SINGLE_KERNELS.items()}
     log("build", seconds=round(time.time() - t0, 3), built=built,
         kernels=_build.kernel_names(), ptxas=stats[:24], attn_mma_regs_spills=mma,
-        attn_wide_regs_spills=wide, attn_tf32_regs_spills=tf32, conv_mma_regs_spills=conv, stem_mma_regs_spills=stem,
+        attn_wide_regs_spills=wide, attn_tf32_regs_spills=tf32, conv_regs_spills=conv, stem_regs_spills=stem,
         lap_splat_regs_spills=single)
     bad = {k: v for k, v in {**mma, **conv, **stem}.items()
            if len(v) != 4 or any(st or ld for _, st, ld in v.values())}
@@ -760,51 +765,60 @@ def phase_attention(dev, logs: dict) -> dict:
 
 
 def phase_conv3x3_train(dev) -> dict:
-    """`conv3x3_train` at the layer-1 shapes of a B=64 train step in bf16:
-    its forward and its input gradient (the conv3x3 kernel with the flipped,
-    transposed weight) against the plain versions; then one backward through
-    autograd against the plain version's (dx and the library's dw).
-    library_ms: cuDNN `F.conv2d` and `torch.nn.grad.conv2d_input`."""
+    """`conv3x3_train` at the layer-1 shapes of a B=64 train step, bf16 then
+    float32: its forward and its input gradient (the conv3x3 kernel with the
+    flipped, transposed weight) against the plain versions, the same bits
+    twice; then one backward through autograd against the plain version's
+    (dx and the library's dw). library_ms: cuDNN `F.conv2d` and
+    `torch.nn.grad.conv2d_input` (float32 in float32: `main` turns TF32
+    off)."""
     from diffusiondrive_torch.ops.conv_fused import (
         conv3x3_kernel, conv3x3_plain, conv3x3_train, conv3x3_train_plain, fused_conv3x3, to_hwio)
 
     gen = torch.Generator().manual_seed(5)
     one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-    dtype = torch.bfloat16
     summary = {}
     for label, shape in CONV_TRAIN:
         B, H, W, _ = shape
-        x, g = nhwc_randn(shape, gen, dev, dtype), nhwc_randn(shape, gen, dev, dtype)
-        w_oihw = (torch.randn(64, 64, 3, 3, generator=gen) / 24.0).to(dev, dtype)
-        w = to_hwio(w_oihw, dtype)
-        w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
-        res = {}
-        for name, fn in (("kernel", conv3x3_train), ("plain", conv3x3_train_plain)):
-            xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
-            fn(xl, wl).backward(g)
-            res[name] = (xl.grad, wl.grad)
-        torch.cuda.synchronize()
-        auto_err = {n: check_close(f"conv3x3_train {label} autograd {n}", a, b, TOL[dtype])[0]
-                    for n, a, b in zip(("dx", "dw"), res["kernel"], res["plain"])}
-        flops = 2.0 * B * H * W * 64 * 576
-        nbytes = x.element_size() * (2.0 * B * H * W * 64 + 576 * 64)
-        bms, by = bound_ms(flops, nbytes, dtype)
-        for part, kern, plain, lib in (
-            ("fwd", lambda: conv3x3_train(x, w), lambda: conv3x3_train_plain(x, w),
-             lambda: F.conv2d(x, w_oihw, padding=1)),
-            ("dx", lambda: fused_conv3x3(g, w_flip, one, zero), lambda: conv3x3_plain(g, w_flip, one, zero),
-             lambda: torch.nn.grad.conv2d_input(x.shape, w_oihw, g, padding=1)),
-        ):
-            got, want = kern(), plain()
+        x0, g0 = torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)
+        w0 = torch.randn(64, 64, 3, 3, generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = (t.to(dev, dtype).permute(0, 3, 1, 2) for t in (x0, g0))
+            w_oihw = (w0 / 24.0).to(dev, dtype)
+            w = to_hwio(w_oihw, dtype)
+            w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+            res = {}
+            for name, fn in (("kernel", conv3x3_train), ("plain", conv3x3_train_plain)):
+                xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+                fn(xl, wl).backward(g)
+                res[name] = (xl.grad, wl.grad)
             torch.cuda.synchronize()
-            err, limit = check_close(f"conv3x3_train {label} {part}", got, want, TOL[dtype])
-            ulps = check_bf16_ulps(f"conv3x3_train {label} {part}", got, want)
-            row = dict(shape=list(shape), dtype=str(dtype), part=part, path=conv3x3_kernel(dtype),
-                       max_abs_err=err, limit=limit, ulp_limit=ulps, autograd_max_abs_err=auto_err,
-                       **time_rows({"kernel_ms": kern, "plain_ms": plain, "library_ms": lib}),
-                       bound_ms=bms, bound_by=by)
-            log(f"kernel conv3x3_train {label} {part}", **row)
-            summary[("conv3x3_train", label, part)] = row
+            auto_err = {n: check_close(f"conv3x3_train {label} autograd {n} {dtype}", a, b, TOL[dtype])[0]
+                        for n, a, b in zip(("dx", "dw"), res["kernel"], res["plain"])}
+            flops = 2.0 * B * H * W * 64 * 576
+            nbytes = x.element_size() * (2.0 * B * H * W * 64 + 576 * 64)
+            bms, by = bound_ms(flops, nbytes, dtype)
+            for part, kern, plain, lib in (
+                ("fwd", lambda: conv3x3_train(x, w), lambda: conv3x3_train_plain(x, w),
+                 lambda: F.conv2d(x, w_oihw, padding=1)),
+                ("dx", lambda: fused_conv3x3(g, w_flip, one, zero), lambda: conv3x3_plain(g, w_flip, one, zero),
+                 lambda: torch.nn.grad.conv2d_input(x.shape, w_oihw, g, padding=1)),
+            ):
+                got, again, want = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                tag = f"conv3x3_train {label} {part} {dtype}"
+                err, limit = check_close(tag, got, want, TOL[dtype])
+                ulps = check_bf16_ulps(tag, got, want) if dtype == torch.bfloat16 else None
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two calls gave different bits")
+                del got, again, want
+                row = dict(shape=list(shape), dtype=str(dtype), part=part, path=conv3x3_kernel(dtype),
+                           max_abs_err=err, limit=limit, ulp_limit=ulps, autograd_max_abs_err=auto_err,
+                           **time_rows({"kernel_ms": kern, "plain_ms": plain, "library_ms": lib}),
+                           bound_ms=bms, bound_by=by)
+                log(f"kernel conv3x3_train {label} {part}", **row)
+                summary[("conv3x3_train", label, part, dtype)] = row
+            del x, g, w, w_flip, w_oihw, res
     return summary
 
 
@@ -3390,10 +3404,20 @@ def main() -> int:
                         "library_ms": row["library_ms"], "pass": True,
                         **{k: row[k] for k in ("library", "shape", "path", "library_conv_ms", "critical_steps",
                                                "ns_per_step", "plan") if k in row}})
+    f32 = torch.float32
     kernels[0]["rows"] = {label: {k: summary[("stem", label, bf)][k] for k in (
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library_conv_ms", "path")} for label, _ in STEM_ROWS}
-    kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part)][k] for k in (
+    kernels[1]["train_use"] = {f"{label} {part}": {k: summary[("conv3x3_train", label, part, bf)][k] for k in (
         "kernel_ms", "plain_ms", "bound_ms", "library_ms", "path")} for label in ("image", "lidar") for part in ("fwd", "dx")}
+    # the float32 kernels (3xTF32 on the tensor cores): every row, eval and train use
+    row_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path", "max_abs_err")
+    kernels[0]["float32_rows"] = {label: {k: summary[("stem", label, f32)][k] for k in row_keys}
+                                  for label, _ in STEM_ROWS}
+    kernels[1]["float32_rows"] = {
+        **{f"{label} {variant}": {k: summary[("conv3x3", label, variant, f32)][k] for k in row_keys}
+           for label, _ in CONV_EVAL for variant in ("residual", "no_residual")},
+        **{f"train {label} {part}": {k: summary[("conv3x3_train", label, part, f32)][k] for k in row_keys}
+           for label, _ in CONV_TRAIN for part in ("fwd", "dx")}}
     kernels[2]["rows"] = {" ".join(map(str, k[1:])): {f: v[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
                           for k, v in summary.items() if k[0] == "lidar_splat"}
     for entry in kernels[4:6]:   # ResNet-50's stage 3, beside the four ResNet-34 stages summed above

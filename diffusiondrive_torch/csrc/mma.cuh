@@ -2,7 +2,10 @@
 // kernels (`attention_fused.cu`, `conv3x3_fused.cu`, `stem_fused.cu`): cp.async
 // into shared memory, ldmatrix and stmatrix fragments, the bf16 m16n8k16
 // product, and the TF32 m16n8k8 product with the split that makes three of
-// them a float32 product (3xTF32).
+// them a float32 product (3xTF32). The tensor cores sum each product into
+// the float32 accumulator cut toward zero, not rounded to nearest: a 3xTF32
+// sum of K products lands ~10x further from float64 than an FMA sum at K =
+// 576 (`tests/test_torch_port_tf32x3_conv.py` models it), far inside 1e-4.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +101,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// The four values of an ldmatrix.x4 fragment (a 32-bit element a register),
+// split as `split_tf32`.
+__device__ __forceinline__ void split_tf32x4(const uint32_t (&r)[4], uint32_t (&big)[4], uint32_t (&small)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(r[q]), big[q], small[q]);
 }
 
 // d += a b in float32 accuracy from split operands (3xTF32): small.big and

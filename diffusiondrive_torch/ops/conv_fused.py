@@ -6,9 +6,12 @@ Counterpart of `diffusiondrive_tpu/ops/conv_fused.py:fused_conv3x3` and its
 
 `fused_conv3x3` dispatches on the tensor's device: a CPU tensor takes
 `conv3x3_plain`, a CUDA tensor launches the kernel or raises. On the card
-the dtype alone picks the kernel (`conv3x3_kernel`): bf16 runs on the
-tensor cores ("mma"), float32 on the CUDA cores ("cuda_core"). The TPU's
-width-pair packing (`pack_pairs`, `pack_conv3x3_weights`) is not ported: the
+the dtype alone picks the kernel (`conv3x3_kernel`), both on the tensor
+cores: bf16 in bf16 products ("mma"), float32 in three TF32 products a
+product ("mma_tf32x3", float32 accuracy; one TF32 product would break the
+float32 limit against `conv3x3_plain`). Tensor-core time bounds the
+float32 kernel, bytes the bf16 one (`csrc/conv3x3_fused.cu`'s header says
+what each design does about it). The TPU's width-pair packing (`pack_pairs`, `pack_conv3x3_weights`) is not ported: the
 kernel reads NHWC bytes directly, i.e. an NCHW tensor in channels_last memory.
 The models take the kernel only where `supports_fused_conv3x3` holds, as
 JAX's do.
@@ -64,9 +67,10 @@ def supports_fused_conv3x3(x: torch.Tensor, features: int, stride: int) -> bool:
 
 
 def conv3x3_kernel(dtype: torch.dtype) -> str:
-    """Which kernel a CUDA call launches: "mma" (bf16, mma.sync on the
-    tensor cores) or "cuda_core" (float32 FMAs)."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    """Which kernel a CUDA call launches: "mma" (bf16, `conv3x3_mma_kernel`)
+    or "mma_tf32x3" (float32, `conv3x3_tf32x3_kernel`: three TF32 products
+    a product), both mma.sync on the tensor cores."""
+    return "mma" if dtype == torch.bfloat16 else "mma_tf32x3"
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -6,14 +6,18 @@ in plain PyTorch.
 
 `fused_stem` dispatches on the tensor's device: a CPU tensor takes
 `stem_plain`, a CUDA tensor launches the kernel or raises. On the card the
-dtype alone picks the kernel (`stem_kernel`): bf16 runs on the tensor cores
-("mma"), float32 on the CUDA cores ("cuda_core"). The TPU's planar lane
-layout (`to_planar`, `pack_stem_weights_planar`) is not ported: the kernel
-reads NHWC bytes directly, i.e. an NCHW tensor in channels_last memory.
+dtype alone picks the kernel (`stem_kernel`), both on the tensor cores:
+bf16 in bf16 products ("mma"), float32 in three TF32 products a product
+("mma_tf32x3", float32 accuracy; one TF32 product would break the float32
+limit against `stem_plain`). Tensor-core time bounds the float32 kernel
+(`csrc/stem_fused.cu`'s header says what each design does about it). The
+TPU's planar lane layout (`to_planar`, `pack_stem_weights_planar`) is not
+ported: the kernel reads NHWC bytes directly, i.e. an NCHW tensor in
+channels_last memory.
 
-The bf16 kernel computes the 7x7/s2 conv as a 4x4/s1 conv over a 2x2
+Both kernels compute the 7x7/s2 conv as a 4x4/s1 conv over a 2x2
 space-to-depth of the input; `stem_conv_s2d` is that form in plain
-PyTorch, with the kernel's channel order and tap mapping, so that the CPU
+PyTorch, with the kernels' channel order and tap mapping, so that the CPU
 tests can hold the mapping to the 7x7/s2 conv.
 """
 
@@ -40,9 +44,10 @@ def supports_fused_stem(x: torch.Tensor) -> bool:
 
 
 def stem_kernel(dtype: torch.dtype) -> str:
-    """Which kernel a CUDA call launches: "mma" (bf16, mma.sync on the
-    tensor cores) or "cuda_core" (float32 FMAs)."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    """Which kernel a CUDA call launches: "mma" (bf16, `stem_mma_kernel`) or
+    "mma_tf32x3" (float32, `stem_tf32x3_kernel`: three TF32 products a
+    product), both mma.sync on the tensor cores."""
+    return "mma" if dtype == torch.bfloat16 else "mma_tf32x3"
 
 
 def stem_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -58,14 +63,15 @@ def stem_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def stem_conv_s2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The 7x7/s2/pad3 conv of `x` by `w` (HWIO (7, 7, C, 64)) in the bf16
-    kernel's form, in plain PyTorch and in `x`'s dtype: a 4x4/s1 conv over
+    """The 7x7/s2/pad3 conv of `x` by `w` (HWIO (7, 7, C, 64)) in the
+    kernels' form, in plain PyTorch and in `x`'s dtype: a 4x4/s1 conv over
     the 2x2 space-to-depth of `x`, output y reading s2d rows y-2 .. y+1
     (padding 2 before, 1 after).
 
     The s2d input (B, 16, H/2, W/2): channel pr*2C + pc*C + c of pixel
-    (i, j) is x[:, c, 2i+pr, 2j+pc], channels 4C..15 are 0. The weight
-    (4, 4, 16, 64), the kernel's rows [tap (dr, dc)][channel][out]:
+    (i, j) is x[:, c, 2i+pr, 2j+pc], channels 4C..15 are 0 (the bf16
+    kernel's padding; the float32 kernel keeps the 4C). The weight (4, 4,
+    16, 64), the kernels' rows [tap (dr, dc)][channel][out]:
     w4[dr, dc, pr*2C + pc*C + c] = w[2dr+pr-1, 2dc+pc-1, c], 0 where a tap
     index is -1 or the channel is past 4C.
     """

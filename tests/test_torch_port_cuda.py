@@ -81,13 +81,15 @@ def _kernel_names(fn) -> set:
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,W", [(2, 20, 36), (1, 33, 70), (8, 64, 256)])
 def test_cuda_conv3x3_kernel_matches_plain_version(cuda_device, dtype, tol, B, H, W):
-    """The conv3x3 kernel the dtype picks (bf16: the tensor cores, "mma";
-    float32: the CUDA cores, "cuda_core"; the profiler names the kernel that
-    ran) against its plain version: ragged tiles (20x36, 33x70: H and W not
-    multiples of the 16x16 tile) and B=8 at 64x256 (512 tiles, more than
-    the card's blocks, so the persistent loop turns), without and with the
-    residual and the ReLU; bf16 also within 2 bf16 ulps; the same bits in
-    two calls; one launch each."""
+    """The conv3x3 kernel the dtype picks (bf16: bf16 products on the tensor
+    cores, "mma"; float32: three TF32 products a product on the tensor
+    cores, "mma_tf32x3"; the profiler names the kernel that ran) against its
+    plain version: ragged tiles (20x36, 33x70: H and W not multiples of the
+    16x16 tile) and B=8 at 64x256 (512 tiles, more than the card's blocks,
+    so the persistent loop turns, and float32's two channel-half stages a
+    tile alternate their buffers over it), without and with the residual
+    and the ReLU; bf16 also within 2 bf16 ulps; the same bits in two calls;
+    one launch each."""
     g = torch.Generator().manual_seed(B * H * W)
     x, r = (torch.randn(B, H, W, 64, generator=g).to(cuda_device, dtype).permute(0, 3, 1, 2) for _ in range(2))
     w = to_hwio((torch.randn(64, 64, 3, 3, generator=g) / 24.0).to(cuda_device), dtype)
@@ -106,10 +108,10 @@ def test_cuda_conv3x3_kernel_matches_plain_version(cuda_device, dtype, tol, B, H
             _within_2_bf16_ulps(got, want, (res is not None, relu))
         assert torch.equal(got, again)
     path = conv3x3_kernel(dtype)
-    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
+    assert path == ("mma" if dtype == torch.bfloat16 else "mma_tf32x3")
     names = _kernel_names(lambda: fused_conv3x3(x, w, s, b, r, True))
     assert any("conv3x3_mma_kernel" in n for n in names) == (path == "mma"), names
-    assert any("conv3x3_kernel" in n and "mma" not in n for n in names) == (path == "cuda_core"), names
+    assert any("conv3x3_tf32x3_kernel" in n for n in names) == (path == "mma_tf32x3"), names
 
 
 @pytest.mark.cuda
@@ -117,13 +119,15 @@ def test_cuda_conv3x3_kernel_matches_plain_version(cuda_device, dtype, tol, B, H
 @pytest.mark.parametrize("B,H,W,Cs,bias", [(2, 36, 100, (1, 2, 3, 4), None), (1, 68, 132, (1, 2, 3, 4), None),
                                            (2, 36, 100, (1, 2, 3, 4), -2.0), (1, 256, 1024, (3,), None)])
 def test_cuda_stem_kernel_matches_plain_version(cuda_device, dtype, tol, B, H, W, Cs, bias):
-    """The stem kernel the dtype picks (bf16: the tensor cores, "mma", for
-    every C = 1..4; float32: the CUDA cores, "cuda_core"; the profiler names
-    the kernel that ran) against its plain version: odd edges (36x100 gives
-    9x25 pooled outputs, 68x132 17x33: neither a multiple of the 8x16 tile),
-    a bias of -2 that drives whole regions to ReLU's zero (the pool's zero
-    padding must still equal -inf padding), and the camera at B=1 (NAVSIM's
-    per-scene call: 128 tiles, about one a block); bf16 also within 2 bf16
+    """The stem kernel the dtype picks, for every C = 1..4 (bf16: bf16
+    products on the tensor cores, "mma"; float32: three TF32 products a
+    product on the tensor cores, "mma_tf32x3"; the profiler names the kernel
+    that ran) against its plain version: odd edges (36x100 gives 9x25
+    pooled outputs, 68x132 17x33: neither a multiple of bf16's 8x16 tile nor
+    of float32's 8x7), a bias of -2 that drives whole regions to ReLU's zero
+    (the pool's zero padding must still equal -inf padding), and the camera
+    at B=1 (NAVSIM's per-scene call: 128 bf16 tiles, about one a block; 296
+    float32 tiles, so the persistent loop turns); bf16 also within 2 bf16
     ulps (kernel and plain version round once, at the same place); the same
     bits in two calls; one launch each."""
     g = torch.Generator().manual_seed(H * W)
@@ -144,10 +148,10 @@ def test_cuda_stem_kernel_matches_plain_version(cuda_device, dtype, tol, B, H, W
             _within_2_bf16_ulps(got, want, f"stem C={C}")
         assert torch.equal(got, again), f"stem C={C}"
     path = stem_kernel(dtype)
-    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
+    assert path == ("mma" if dtype == torch.bfloat16 else "mma_tf32x3")
     names = _kernel_names(lambda: fused_stem(x, w, s, b))
     assert any("stem_mma_kernel" in n for n in names) == (path == "mma"), names
-    assert any("stem_kernel" in n and "mma" not in n for n in names) == (path == "cuda_core"), names
+    assert any("stem_tf32x3_kernel" in n for n in names) == (path == "mma_tf32x3"), names
 
 
 @pytest.mark.cuda
@@ -567,11 +571,12 @@ def test_cuda_attention_refuses_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,W", [(2, 20, 36), (8, 64, 256)])
 def test_cuda_conv3x3_train_matches_plain_version(cuda_device, dtype, tol, B, H, W):
-    """Forward and input gradient on the conv3x3 kernel, the weight gradient
-    from the library, against `conv3x3_train_plain` through autograd, at odd
-    edges and where the persistent loop turns; bf16 forward and input
-    gradient also within 2 bf16 ulps; the output gradient arrives in NCHW
-    memory (the Function copies it to channels_last)."""
+    """Forward and input gradient on the conv3x3 kernel the dtype picks
+    (float32: `conv3x3_tf32x3_kernel`), the weight gradient from the
+    library, against `conv3x3_train_plain` through autograd, at odd edges
+    and where the persistent loop turns; bf16 forward and input gradient
+    also within 2 bf16 ulps; the output gradient arrives in NCHW memory
+    (the Function copies it to channels_last)."""
     from diffusiondrive_torch.ops.conv_fused import fused_conv3x3 as kernel
 
     g = torch.Generator().manual_seed(3)

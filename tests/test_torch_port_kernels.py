@@ -91,7 +91,7 @@ def test_stem_plain_rounds_once_in_bf16_as_jax(C):
     t = torch.bfloat16
     got = fused_stem(_nchw(x).to(t), torch.from_numpy(w).to(t), torch.from_numpy(sc),
                      torch.from_numpy(bi))
-    assert got.dtype == t and stem_kernel(t) == "mma" and stem_kernel(torch.float32) == "cuda_core"
+    assert got.dtype == t and stem_kernel(t) == "mma" and stem_kernel(torch.float32) == "mma_tf32x3"
     _within_one_bf16_ulp_of(_nhwc(got.float()), want)
 
 

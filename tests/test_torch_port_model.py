@@ -205,23 +205,26 @@ ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__59d00c3c_16_conv3x3_f
 ptxas info    : Function properties for _ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e618conv3x3_mma_kernelILb1ELb0EEEvPK13__nv_bfloat16S3_PKfS5_S3_PS1_iii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 240 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e614conv3x3_kernelIfLb1ELb1EEEvPKT_S3_PKfS5_S3_PS1_ii' for 'sm_90a'
-ptxas info    : Function properties for _ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e614conv3x3_kernelIfLb1ELb1EEEvPKT_S3_PKfS5_S3_PS1_ii
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e621conv3x3_tf32x3_kernelILb1ELb1EEEvPKfS2_S2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__59d00c3c_16_conv3x3_fused_cu_8becc0e621conv3x3_tf32x3_kernelILb1ELb1EEEvPKfS2_S2_S2_S2_Pfiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 79 registers, used 1 barriers
+ptxas info    : Used 216 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__8580e1d2_13_stem_fused_cu_3778f12718stem_tf32x3_kernelILi3EEEvPKfS2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__8580e1d2_13_stem_fused_cu_3778f12718stem_tf32x3_kernelILi3EEEvPKfS2_S2_S2_Pfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 181 registers, used 1 barriers
 """
 
 
 def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     """The build phase's spill gate reads nvcc's `-Xptxas -v` log: per
     tensor-core kernel and instantiation (attention: head width DP, the
-    float32 3xTF32 kernels up to 256; conv3x3: residual, ReLU; the wide
-    attention kernels are no templates: key ""),
-    [registers, spill store bytes, spill load bytes]; other kernels, the
-    CUDA-core conv3x3 among them, are not mixed in, and a bf16 attention
-    row's stats follow the dispatch's head-width ladder. An
-    unbuilt library has an empty log (the gate then finds no instantiation
-    and fails)."""
+    float32 3xTF32 kernels up to 256; conv3x3: residual, ReLU, bf16 and
+    float32 kernels apart; stem: C; the wide attention kernels are no
+    templates: key ""), [registers, spill store bytes, spill load bytes];
+    other kernels are not mixed in, and a bf16 attention row's stats follow
+    the dispatch's head-width ladder. An unbuilt library has an empty log
+    (the gate then finds no instantiation and fails)."""
     import chip_smoke
     from diffusiondrive_torch.ops import _build
 
@@ -238,6 +241,9 @@ def test_chip_smoke_reads_registers_and_spills_per_instantiation():
     assert chip_smoke.attention_regs_spills(logs, True, 16, torch.float32) == {
         "attn_bwd_dq_tf32x3_kernel": None, "attn_bwd_dkdv_tf32x3_kernel": None}
     assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.CONV_MMA_KERNEL) == {"1,0": [240, 0, 0]}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.CONV_TF32_KERNEL) == {"1,1": [216, 0, 0]}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.STEM_TF32_KERNEL) == {"3": [181, 0, 0]}
+    assert chip_smoke.ptxas_stats(_PTXAS_LOG, chip_smoke.STEM_MMA_KERNEL) == {}
     assert set(chip_smoke.MMA_KERNELS) == {"attn_fwd_mma_kernel", "attn_bwd_dq_mma_kernel",
                                            "attn_bwd_dkdv_mma_kernel"}
     if not _build._target("attention_fused").exists():
